@@ -16,7 +16,26 @@ Phases (any failure ends the run with a non-zero exit code):
      flagship weights, and check that both kernels were launched;
   5. run the first frame again on the CPU and require the same instance
      count and >= 99.5% panoptic agreement;
-  6. print a JSON line of the kernels' numbers, the frame time, and as the
+  6. hold the batched kernels against their plain versions at B = 8 and
+     480x640 in every frame (encode: 64 slots, a different number of ok
+     instances per frame, empty and invalid slots, a frame with none valid;
+     group: K = 32 and K = 200, a different valid count per frame, a frame
+     with none valid) -- ids exact, encode within 1e-6 -- and time them as
+     in phase 3;
+  7. serve 20 seeded frames through predict_batch in batches of 8 (the last
+     one padded with copies of its first frame), require one launch of each
+     batched kernel per batch and none of the single-frame ones, and per
+     frame the single-frame predict's instance count and >= 99.5% of its
+     panoptic labels;
+  8. serve the same frames through stage_frames + predict_batch_stream_staged
+     and through predict_batch_stream(prefetch=2); both must give
+     predict_batch's panoptic maps and counts exactly and its scores within
+     rtol 1e-6. Frames per second of the three paths (median of 3 passes
+     after a warm one), and the device time the per-batch host sync leaves
+     the compute stream idle;
+  9. refine one 360x480 frame through MultiScalePredictor (480x640 bucket):
+     finite outputs of the input's size, encode and group kernels launched;
+ 10. print a JSON line of the kernels' numbers, the frame time, and as the
      last line {"ok": true, "device": {...}}.
 Needs CUDA; it has no CPU mode.
 """
@@ -35,8 +54,11 @@ import torch
 H, W = 480, 640
 N_MASKS = 64
 N_FRAMES = 8
+BATCH = 8
+N_SERVE = 20
 ENCODE_ATOL = 1e-6
 PANOPTIC_AGREEMENT = 0.995
+SCORES_RTOL = 1e-6
 # H100 SXM data sheet: HBM3 rate and fp32 rate outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
@@ -204,6 +226,235 @@ def cpu_parity(params, frame, gpu_result):
         raise AssertionError("the card and the CPU disagree on the first frame")
 
 
+def check_batched_kernels(dev, flush):
+    from quber_tpu_torch.ops import encoding, grouping, kernels
+
+    rows = []
+    rng = np.random.RandomState(1)
+    hw = H * W
+
+    # --- encode: B frames of 64 slots, a different number valid in each,
+    # one empty and one invalid slot, and a frame with no valid slot ---
+    n_valid = (64, 48, 33, 16, 8, 60, 1, 0)
+    masks_np = np.stack([_ellipse_masks(rng, N_MASKS, H, W) for _ in range(BATCH)])
+    masks_np[:, 10] = False
+    valid_np = np.arange(N_MASKS)[None] < np.array(n_valid)[:, None]
+    valid_np[:, 20] = False
+    masks = torch.from_numpy(masks_np).to(dev)
+    valid = torch.from_numpy(valid_np).to(dev)
+    areas, centers = encoding.instance_stats(masks, valid)
+    ok = valid & (areas > 0)
+    got = kernels.encode_initial_masks_batched(masks, ok, centers)
+    want = encoding.encode_from_stats_batched(masks, ok, centers)
+    torch.cuda.synchronize()
+    errs = [float((got[b] - want[b]).abs().max()) for b in range(BATCH)]
+    print(f"encode_initial_masks_batched B={BATCH} N={N_MASKS} {H}x{W}, ok per frame "
+          f"{ok.sum(dim=1).tolist()}: max |kernel - plain| per frame {errs} "
+          f"(tolerance {ENCODE_ATOL})")
+    if not max(errs) <= ENCODE_ATOL:
+        raise AssertionError("batched encode kernel disagrees with its plain version")
+    n_ok = int(ok.sum())
+    bound_ms, bound_by = _bound(n_ok * hw + BATCH * N_MASKS * 9 + BATCH * 3 * hw * 4,
+                                hw * n_ok * 8 + BATCH * hw * 20)
+    rows.append({
+        "name": "encode_initial_masks_batched", "route": "cuda",
+        "source": "quber_tpu_torch/ops/csrc/kernels.cu",
+        "replaces": "quber_tpu/ops/pallas_kernels.py:252",
+        "shape": f"masks [{BATCH},{N_MASKS},{H},{W}] bool, {n_ok} ok",
+        "max_abs_err": max(errs), "tolerance": ENCODE_ATOL,
+        "ms": _time_ms(lambda: kernels.encode_initial_masks_batched(masks, ok, centers), flush),
+        "plain_ms": _time_ms(lambda: encoding.encode_from_stats_batched(masks, ok, centers),
+                             flush),
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+    })
+    del masks, got, want
+
+    # --- group: K = 32 and K = 200, a different valid count per frame and a
+    # frame with every centre invalid ---
+    offsets = (torch.randn((BATCH, 2, H, W), generator=torch.Generator().manual_seed(2))
+               * 20).to(dev)
+    cases = {}
+    for k, n_valid in ((32, (8, 32, 1, 16, 0, 24, 5, 12)),
+                       (200, (120, 200, 3, 60, 0, 150, 90, 30))):
+        cen_np = np.stack([rng.randint(0, H, (BATCH, k)), rng.randint(0, W, (BATCH, k))], -1)
+        cen = torch.from_numpy(cen_np.astype(np.int32)).to(dev)
+        val = torch.from_numpy(np.arange(k)[None] < np.array(n_valid)[:, None]).to(dev)
+        got = kernels.group_pixels_batched(cen, val, offsets)
+        want = grouping.group_pixels_batched(cen, val, offsets)
+        mismatches = [int((got[b] != want[b]).sum()) for b in range(BATCH)]
+        print(f"group_pixels_batched B={BATCH} K={k} valid per frame {list(n_valid)}: "
+              f"ids differing per frame {mismatches} (tolerance 0)")
+        if any(mismatches):
+            raise AssertionError("batched group kernel disagrees with its plain version")
+        bound_ms, bound_by = _bound(BATCH * 3 * hw * 4 + BATCH * k * 9,
+                                    hw * sum(n_valid) * 6 + BATCH * hw * 2)
+        cases[k] = {
+            "shape": f"centers [{BATCH},{k},2], {sum(n_valid)} valid, offsets "
+                     f"[{BATCH},2,{H},{W}]",
+            "ms": _time_ms(lambda: kernels.group_pixels_batched(cen, val, offsets), flush),
+            "plain_ms": _time_ms(lambda: grouping.group_pixels_batched(cen, val, offsets),
+                                 flush),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+        }
+    rows.append({
+        "name": "group_pixels_batched", "route": "cuda",
+        "source": "quber_tpu_torch/ops/csrc/kernels.cu",
+        "replaces": "quber_tpu/ops/pallas_kernels.py:98",
+        **cases[32], "max_abs_err": 0.0, "tolerance": 0,
+        "library_ms": None,
+        "k200": cases[200],
+    })
+    return rows
+
+
+def _launch_counts():
+    from quber_tpu_torch.ops import kernels
+
+    return {name: getattr(kernels, name).launches for name in (
+        "encode_initial_masks", "group_pixels",
+        "encode_initial_masks_batched", "group_pixels_batched")}
+
+
+def _check_launches(path, launches, n_batches):
+    print(f"{path}: launches {launches}")
+    for name in ("encode_initial_masks_batched", "group_pixels_batched"):
+        if launches[name] != n_batches:
+            raise AssertionError(f"{path}: {name} launched {launches[name]} times "
+                                 f"for {n_batches} batches")
+    for name in ("encode_initial_masks", "group_pixels"):
+        if launches[name]:
+            raise AssertionError(f"{path}: single-frame {name} was launched")
+
+
+def _same_outputs(path, got, want):
+    if len(got) != len(want):
+        raise AssertionError(f"{path}: {len(got)} results for {len(want)} frames")
+    for i, ((gp, gc, gs), (wp, wc, ws)) in enumerate(zip(got, want)):
+        if gc != wc or not np.array_equal(gp, wp):
+            raise AssertionError(f"{path}: frame {i} differs from predict_batch")
+        np.testing.assert_allclose(gs, ws, rtol=SCORES_RTOL, atol=0,
+                                   err_msg=f"{path}: frame {i} scores")
+    print(f"{path}: panoptic maps and counts identical to predict_batch's, scores within "
+          f"rtol {SCORES_RTOL}, {len(got)} frames")
+
+
+def serve_batched(params, card):
+    from quber_tpu_torch.data.synthetic import blob_scene
+    from quber_tpu_torch.ops import kernels
+    from quber_tpu_torch.predictor import MaskRefinerPredictor
+
+    predictor = MaskRefinerPredictor(params=params, device="cuda")
+    frames = []
+    for i in range(N_SERVE):
+        rng = np.random.RandomState(200 + i)
+        frames.append(blob_scene(rng, H, W, rng.randint(3, 9)))
+    batches = [frames[i:i + BATCH] for i in range(0, N_SERVE, BATCH)]
+
+    def run_batches():
+        out = []
+        for b in batches:  # a partial batch is padded with copies of its first frame
+            out += predictor.predict_batch(b + [b[0]] * (BATCH - len(b)))[:len(b)]
+        return out
+
+    def run_staged(staged):
+        return list(predictor.predict_batch_stream_staged(staged, prefetch=2))
+
+    def run_stream():
+        return list(predictor.predict_batch_stream(iter(frames), BATCH, prefetch=2))
+
+    kernels.reset_launch_counts()
+    batch_out = run_batches()
+    launches = _launch_counts()
+    _check_launches("predict_batch", launches, len(batches))
+    counts = [c for _, c, _ in batch_out]
+    print(f"predict_batch: {N_SERVE} frames in batches of {BATCH}, initial masks "
+          f"{[len(f[2]) for f in frames]}, refined instances {counts}")
+    if not any(counts):
+        raise AssertionError("no frame produced an instance")
+
+    agreements = []
+    for i, (rgb, depth, masks) in enumerate(frames):
+        single = predictor.predict(rgb, depth, list(masks))[0]
+        n = len(single.get("instances", {}).get("scores", []))
+        agreements.append(float((single["panoptic_seg"][0] == batch_out[i][0]).mean()))
+        if n != counts[i] or agreements[-1] < PANOPTIC_AGREEMENT:
+            raise AssertionError(f"frame {i}: predict_batch gives {counts[i]} instances and "
+                                 f"{agreements[-1]:.6f} agreement, predict gives {n}")
+    print(f"predict_batch against single-frame predict: same counts, panoptic agreement "
+          f"min {min(agreements):.6f} (need >= {PANOPTIC_AGREEMENT})")
+
+    kernels.reset_launch_counts()
+    staged = predictor.stage_frames(frames, BATCH)
+    staged_out = run_staged(staged)
+    _check_launches("stage_frames + predict_batch_stream_staged", _launch_counts(),
+                    len(batches))
+    _same_outputs("predict_batch_stream_staged", staged_out, batch_out)
+    kernels.reset_launch_counts()
+    stream_out = run_stream()
+    _check_launches("predict_batch_stream(prefetch=2)", _launch_counts(), len(batches))
+    _same_outputs("predict_batch_stream", stream_out, batch_out)
+
+    def fps(fn):
+        fn()  # warm pass
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return N_SERVE / statistics.median(times), [round(t * 1e3, 3) for t in times]
+
+    rates = {"predict_batch": fps(run_batches),
+             "staged": fps(lambda: run_staged(staged)),
+             "stream": fps(run_stream)}
+    for name, (rate, times) in rates.items():
+        print(f"{name}: {rate:.3f} frames/s ({N_SERVE} frames, batches of {BATCH}, pass ms "
+              f"{times}) on {card}")
+
+    # device time the compute stream idles while the host reads the largest
+    # survivor count (the batch-wide fast-K branch), on a staged pass
+    predictor.sync_events = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run_staged(staged)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    gaps = [a.elapsed_time(b) for a, b in predictor.sync_events]
+    predictor.sync_events = None
+    print(f"per-batch host sync: compute stream idle {[round(g, 4) for g in gaps]} ms per "
+          f"batch, {sum(gaps):.4f} ms of a {wall_ms:.3f} ms staged pass on {card}")
+    return launches, rates
+
+
+def multiscale(params):
+    from quber_tpu_torch.data.synthetic import blob_scene
+    from quber_tpu_torch.ops import kernels
+    from quber_tpu_torch.predictor import MultiScalePredictor
+
+    ms = MultiScalePredictor(params=params, device="cuda")
+    h0, w0 = 360, 480
+    rgb, depth, masks = blob_scene(np.random.RandomState(300), h0, w0, 5)
+    kernels.reset_launch_counts()
+    out = ms.predict(rgb, depth, list(masks))[0]
+    torch.cuda.synchronize()
+    launches = _launch_counts()
+    n = len(out.get("instances", {}).get("scores", []))
+    print(f"MultiScalePredictor: {h0}x{w0} frame -> buckets {list(ms._cache)}, "
+          f"{len(masks)} initial masks, {n} refined instances, launches {launches}")
+    if out["panoptic_seg"][0].shape != (h0, w0):
+        raise AssertionError("panoptic map is not of the input's size")
+    if out["sem_seg"].shape != (h0, w0) or not np.isfinite(out["sem_seg"]).all():
+        raise AssertionError("sem_seg is not a finite map of the input's size")
+    if out["eee_mask"].shape != (2, h0, w0) or not np.isfinite(out["eee_mask"]).all():
+        raise AssertionError("eee_mask is not a finite map of the input's size")
+    if list(ms._cache) != [(H, W)]:
+        raise AssertionError("the frame did not go into the 480x640 bucket")
+    for name in ("encode_initial_masks", "group_pixels"):
+        if not launches[name]:
+            raise AssertionError(f"MultiScalePredictor did not launch {name}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -235,6 +486,17 @@ def main() -> int:
         row["kernel_ms"] = row["ms"]
         row["bound_us"] = row["bound_ms"] * 1e3
     cpu_parity(params, frames[0], results[0])
+
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    batched_rows = check_batched_kernels(dev, flush)
+    del flush
+    batched_launches, _ = serve_batched(params, card)
+    for row in batched_rows:
+        row["launches"] = batched_launches[row["name"]]
+        row["kernel_ms"] = row["ms"]
+        row["bound_us"] = row["bound_ms"] * 1e3
+    rows += batched_rows
+    multiscale(params)
 
     steady = times[1:]
     med = statistics.median(steady)

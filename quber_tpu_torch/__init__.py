@@ -5,7 +5,9 @@ functions keep the JAX package's layouts (image [H, W, 6], masks [N, H, W],
 encoding [3, H, W], offsets [2, H, W], centers [K, 2] int32 (y, x)) so the
 two can be compared output for output; the modules inside are NCHW.
 
-Ported so far: single-frame refinement, `predictor.MaskRefinerPredictor`,
-with the encode and group kernels hand-written in CUDA for sm_90a
+Ported so far: refinement inference, `predictor.MaskRefinerPredictor`
+(single-frame `predict`, batched `predict_batch`, staged and streamed
+serving) and `predictor.MultiScalePredictor`, with the encode and group
+kernels and their batched launches hand-written in CUDA for sm_90a
 (`ops/csrc/kernels.cu`).
 """

@@ -1,9 +1,10 @@
 """Centre-Gaussian / offset encoding of an initial mask stack (plain torch).
 
-Port of quber_tpu/ops/encoding.py:30-147. `encode_from_stats` is the plain
-version the CUDA encode kernel (ops/kernels.py) is held against; it takes
-the same arguments as the kernel: the mask stack, the instances to encode
-(valid and non-empty) and their float centroids from `instance_stats`.
+Port of quber_tpu/ops/encoding.py:30-147. `encode_from_stats` (and its
+batched twin `encode_from_stats_batched`) is the plain version the CUDA
+encode kernel (ops/kernels.py) is held against; it takes the same
+arguments as the kernel: the mask stack, the instances to encode (valid
+and non-empty) and their float centroids from `instance_stats`.
 
 Semantics, per pixel p:
   * channel 0: exp(-min_k |p - round(c_k)|^2 / (2 sigma^2)) over the valid
@@ -24,24 +25,23 @@ _CHUNK = 65536
 def instance_stats(masks: torch.Tensor, valid: torch.Tensor | None = None):
     """Areas and float centroids of a mask stack.
 
-    masks [N, H, W] bool; valid [N] bool or None. Returns (areas [N] f32,
-    centers_yx [N, 2] f32); empty or invalid instances get area 0 and
-    centroid (0, 0). The sums run in float64 over per-row and per-column
-    counts, so they are exact; the JAX package sums in float32, whose
-    centroids differ from these by up to ~1e-4 px at 480x640.
+    masks [..., N, H, W] bool (a frame, or a batch [B, N, H, W]); valid
+    [..., N] bool or None. Returns (areas [..., N] f32, centers_yx
+    [..., N, 2] f32); empty or invalid instances get area 0 and centroid
+    (0, 0). Per-row and per-column counts are integer sums and the moments
+    run in float64, so they are exact; the JAX package sums in float32,
+    whose centroids differ from these by up to ~1e-4 px at 480x640.
     """
-    n, h, w = masks.shape
-    m = masks.to(torch.float64)
-    if valid is not None:
-        m = m * valid.to(torch.float64)[:, None, None]
-    rows = m.sum(dim=2)  # [N, H]
-    cols = m.sum(dim=1)  # [N, W]
-    areas = rows.sum(dim=1)
+    h, w = masks.shape[-2:]
+    m = masks if valid is None else masks & valid[..., None, None]
+    rows = m.sum(dim=-1).to(torch.float64)  # [..., N, H]
+    cols = m.sum(dim=-2).to(torch.float64)  # [..., N, W]
+    areas = rows.sum(dim=-1)
     denom = areas.clamp_min(1.0)
     ys = torch.arange(h, dtype=torch.float64, device=masks.device)
     xs = torch.arange(w, dtype=torch.float64, device=masks.device)
-    cy = (rows * ys).sum(dim=1) / denom
-    cx = (cols * xs).sum(dim=1) / denom
+    cy = (rows * ys).sum(dim=-1) / denom
+    cx = (cols * xs).sum(dim=-1) / denom
     return areas.float(), torch.stack([cy, cx], dim=-1).float()
 
 
@@ -89,6 +89,15 @@ def encode_from_stats(masks: torch.Tensor, ok: torch.Tensor, centers: torch.Tens
     off_y = torch.where(owned, (cy_tab[owner] - ys.view(h, w)) / sy, 0.0)
     off_x = torch.where(owned, (cx_tab[owner] - xs.view(h, w)) / sx, 0.0)
     return torch.stack([heat.view(h, w), off_y, off_x], dim=0)
+
+
+def encode_from_stats_batched(masks: torch.Tensor, ok: torch.Tensor, centers: torch.Tensor,
+                              sigma: int = 10, normalize: bool = True) -> torch.Tensor:
+    """[B, N, H, W] masks, ok [B, N] bool, centers [B, N, 2] f32 ->
+    [B, 3, H, W] f32, frame by frame. The plain version of the batched CUDA
+    encode launch."""
+    return torch.stack([encode_from_stats(m, o, c, sigma, normalize)
+                        for m, o, c in zip(masks, ok, centers)])
 
 
 def encode_initial_masks(masks: torch.Tensor, valid: torch.Tensor | None = None,

@@ -20,30 +20,42 @@ _CHUNK = 65536
 
 def nms_heatmap(heatmap: torch.Tensor, threshold: float = 0.1,
                 nms_kernel: int = 3) -> torch.Tensor:
-    """Suppress non-peak heatmap values to -1."""
+    """Suppress non-peak heatmap values to -1; heatmap [..., H, W]."""
+    h, w = heatmap.shape[-2:]
     x = torch.where(heatmap > threshold, heatmap, -1.0)
-    pooled = F.max_pool2d(x[None, None], nms_kernel, 1, (nms_kernel - 1) // 2)[0, 0]
+    pooled = F.max_pool2d(x.reshape(-1, 1, h, w), nms_kernel, 1,
+                          (nms_kernel - 1) // 2).reshape(x.shape)
     return torch.where(x == pooled, x, -1.0)
+
+
+def find_instance_centers_batched(heatmaps: torch.Tensor, threshold: float = 0.1,
+                                  nms_kernel: int = 3, top_k: int = 200):
+    """Peak detection with a fixed-K result per frame: heatmaps [B, H, W] ->
+    (centers [B, K, 2] int32 (y, x), valid [B, K] bool). Survivors are the
+    NMS peaks strictly greater than max(K-th score, 0), which makes the set
+    independent of how top-k breaks ties; they come first, in row-major
+    order (a stable sort along the pixel axis of each frame)."""
+    b, h, w = heatmaps.shape
+    kept = nms_heatmap(heatmaps, threshold, nms_kernel).reshape(b, -1)
+    k = min(top_k, kept.shape[1])
+    vals, idx = torch.topk(kept, k, dim=1)
+    bound = vals[:, k - 1:k].clamp_min(0.0)
+    valid = vals > bound
+    sort_key = torch.where(valid, idx, torch.iinfo(torch.int64).max)
+    order = torch.argsort(sort_key, dim=1, stable=True)
+    idx, valid = idx.gather(1, order), valid.gather(1, order)
+    centers = torch.stack([idx // w, idx % w], dim=-1).to(torch.int32)
+    centers = torch.where(valid[..., None], centers, 0)
+    return centers, valid
 
 
 def find_instance_centers(heatmap: torch.Tensor, threshold: float = 0.1,
                           nms_kernel: int = 3, top_k: int = 200):
-    """Peak detection with a fixed-K result -> (centers [K, 2] int32 (y, x),
-    valid [K] bool). Survivors are the NMS peaks strictly greater than
-    max(K-th score, 0), which makes the set independent of how top-k breaks
-    ties; they come first, in row-major order."""
-    h, w = heatmap.shape
-    kept = nms_heatmap(heatmap, threshold, nms_kernel).reshape(-1)
-    k = min(top_k, kept.shape[0])
-    vals, idx = torch.topk(kept, k)
-    bound = vals[k - 1].clamp_min(0.0)
-    valid = vals > bound
-    sort_key = torch.where(valid, idx, torch.iinfo(torch.int64).max)
-    order = torch.argsort(sort_key, stable=True)
-    idx, valid = idx[order], valid[order]
-    centers = torch.stack([idx // w, idx % w], dim=-1).to(torch.int32)
-    centers = torch.where(valid[:, None], centers, 0)
-    return centers, valid
+    """find_instance_centers_batched for one heatmap [H, W] -> (centers
+    [K, 2] int32 (y, x), valid [K] bool)."""
+    centers, valid = find_instance_centers_batched(heatmap[None], threshold,
+                                                   nms_kernel, top_k)
+    return centers[0], valid[0]
 
 
 def group_pixels(centers: torch.Tensor, valid: torch.Tensor,
@@ -69,6 +81,14 @@ def group_pixels(centers: torch.Tensor, valid: torch.Tensor,
         dx = lx[s:s + _CHUNK, None] - cx[None, :]
         ids[s:s + _CHUNK] = torch.argmin(dy * dy + dx * dx + pen[None, :], dim=1)
     return (ids.view(h, w) + 1).to(torch.int32)
+
+
+def group_pixels_batched(centers: torch.Tensor, valid: torch.Tensor,
+                         offsets: torch.Tensor) -> torch.Tensor:
+    """centers [B, K, 2], valid [B, K], offsets [B, 2, H, W] -> [B, H, W]
+    int32, frame by frame. The plain version of the batched CUDA group
+    launch."""
+    return torch.stack([group_pixels(c, v, o) for c, v, o in zip(centers, valid, offsets)])
 
 
 def merge_and_score(fg: torch.Tensor, foreground_prob: torch.Tensor,

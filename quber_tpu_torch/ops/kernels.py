@@ -1,6 +1,8 @@
 """Wrappers of the hand-written CUDA kernels (ops/csrc/kernels.cu).
 
-Counterpart of quber_tpu/ops/pallas_kernels.py. Each wrapper takes its
+Counterpart of quber_tpu/ops/pallas_kernels.py: a single-frame and a
+batched wrapper for each of the two kernels, the batched one launching
+once for the whole batch (grid.y = B). Each wrapper takes its
 plain torch version for tensors on the CPU, and for CUDA tensors launches
 its kernel or raises: there is no fallback. Each counts its kernel
 launches in `<wrapper>.launches`, so a run can show that its path went
@@ -93,6 +95,46 @@ def _raise_on(err: int, what: str):
         raise RuntimeError(f"{what} kernel launch failed: cudaError {err}")
 
 
+def _launch_encode(masks, ok, centers, sigma, normalize) -> torch.Tensor:
+    """Checks and launches encode_kernel over masks [B, N, H, W] bool, ok
+    [B, N] bool, centers [B, N, 2] f32 -> [B, 3, H, W] f32."""
+    b, n, h, w = masks.shape
+    if n > _MAX_INSTANCES:
+        raise ValueError(f"at most {_MAX_INSTANCES} instances, got {n}")
+    dev = masks.device
+    _check("masks", masks, torch.bool, (b, n, h, w), dev)
+    _check("ok", ok, torch.bool, (b, n), dev)
+    _check("centers", centers, torch.float32, (b, n, 2), dev)
+    lib = load_library()
+    out = torch.empty((b, 3, h, w), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.quber_encode_initial_masks(
+        masks.data_ptr(), ok.data_ptr(), centers.data_ptr(), out.data_ptr(),
+        b, n, h, w, int(sigma), int(bool(normalize)), stream)
+    _raise_on(err, "encode_initial_masks")
+    return out
+
+
+def _launch_group(centers, valid, offsets) -> torch.Tensor:
+    """Checks and launches group_kernel over centers [B, K, 2] int32, valid
+    [B, K] bool, offsets [B, 2, H, W] f32 -> ids [B, H, W] int32."""
+    b, k = centers.shape[0], centers.shape[1]
+    h, w = offsets.shape[2], offsets.shape[3]
+    if k > _MAX_CENTERS:
+        raise ValueError(f"at most {_MAX_CENTERS} centres, got {k}")
+    dev = offsets.device
+    _check("centers", centers, torch.int32, (b, k, 2), dev)
+    _check("valid", valid, torch.bool, (b, k), dev)
+    _check("offsets", offsets, torch.float32, (b, 2, h, w), dev)
+    lib = load_library()
+    ids = torch.empty((b, h, w), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.quber_group_pixels(centers.data_ptr(), valid.data_ptr(),
+                                 offsets.data_ptr(), ids.data_ptr(), b, k, h, w, stream)
+    _raise_on(err, "group_pixels")
+    return ids
+
+
 def encode_initial_masks(masks: torch.Tensor, ok: torch.Tensor, centers: torch.Tensor,
                          sigma: int = 10, normalize: bool = True) -> torch.Tensor:
     """masks [N, H, W] bool, ok [N] bool (valid and area > 0), centers [N, 2]
@@ -100,20 +142,7 @@ def encode_initial_masks(masks: torch.Tensor, ok: torch.Tensor, centers: torch.T
     version is ops.encoding.encode_from_stats."""
     if masks.device.type == "cpu":
         return encoding.encode_from_stats(masks, ok, centers, sigma, normalize)
-    n, h, w = masks.shape
-    if n > _MAX_INSTANCES:
-        raise ValueError(f"at most {_MAX_INSTANCES} instances, got {n}")
-    dev = masks.device
-    _check("masks", masks, torch.bool, (n, h, w), dev)
-    _check("ok", ok, torch.bool, (n,), dev)
-    _check("centers", centers, torch.float32, (n, 2), dev)
-    lib = load_library()
-    out = torch.empty((3, h, w), dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.quber_encode_initial_masks(
-        masks.data_ptr(), ok.data_ptr(), centers.data_ptr(), out.data_ptr(),
-        1, n, h, w, int(sigma), int(bool(normalize)), stream)
-    _raise_on(err, "encode_initial_masks")
+    out = _launch_encode(masks[None], ok[None], centers[None], sigma, normalize)[0]
     encode_initial_masks.launches += 1
     return out
 
@@ -128,20 +157,7 @@ def group_pixels(centers: torch.Tensor, valid: torch.Tensor,
     is ops.grouping.group_pixels."""
     if offsets.device.type == "cpu":
         return grouping.group_pixels(centers, valid, offsets)
-    k = centers.shape[0]
-    h, w = offsets.shape[1], offsets.shape[2]
-    if k > _MAX_CENTERS:
-        raise ValueError(f"at most {_MAX_CENTERS} centres, got {k}")
-    dev = offsets.device
-    _check("centers", centers, torch.int32, (k, 2), dev)
-    _check("valid", valid, torch.bool, (k,), dev)
-    _check("offsets", offsets, torch.float32, (2, h, w), dev)
-    lib = load_library()
-    ids = torch.empty((h, w), dtype=torch.int32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.quber_group_pixels(centers.data_ptr(), valid.data_ptr(),
-                                 offsets.data_ptr(), ids.data_ptr(), 1, k, h, w, stream)
-    _raise_on(err, "group_pixels")
+    ids = _launch_group(centers[None], valid[None], offsets[None])[0]
     group_pixels.launches += 1
     return ids
 
@@ -149,6 +165,41 @@ def group_pixels(centers: torch.Tensor, valid: torch.Tensor,
 group_pixels.launches = 0
 
 
+def encode_initial_masks_batched(masks: torch.Tensor, ok: torch.Tensor,
+                                 centers: torch.Tensor, sigma: int = 10,
+                                 normalize: bool = True) -> torch.Tensor:
+    """masks [B, N, H, W] bool, ok [B, N] bool, centers [B, N, 2] f32 ->
+    [B, 3, H, W] f32, one launch for the batch (grid.y = B). Replaces
+    encode_initial_masks_pallas_batched; the plain version is
+    ops.encoding.encode_from_stats_batched."""
+    if masks.device.type == "cpu":
+        return encoding.encode_from_stats_batched(masks, ok, centers, sigma, normalize)
+    out = _launch_encode(masks, ok, centers, sigma, normalize)
+    encode_initial_masks_batched.launches += 1
+    return out
+
+
+encode_initial_masks_batched.launches = 0
+
+
+def group_pixels_batched(centers: torch.Tensor, valid: torch.Tensor,
+                         offsets: torch.Tensor) -> torch.Tensor:
+    """centers [B, K, 2] int32 (y, x), valid [B, K] bool, offsets [B, 2, H, W]
+    f32 -> 1-based ids [B, H, W] int32, one launch for the batch (grid.y =
+    B). Replaces group_pixels_pallas_batched; the plain version is
+    ops.grouping.group_pixels_batched."""
+    if offsets.device.type == "cpu":
+        return grouping.group_pixels_batched(centers, valid, offsets)
+    ids = _launch_group(centers, valid, offsets)
+    group_pixels_batched.launches += 1
+    return ids
+
+
+group_pixels_batched.launches = 0
+
+
 def reset_launch_counts() -> None:
     encode_initial_masks.launches = 0
     group_pixels.launches = 0
+    encode_initial_masks_batched.launches = 0
+    group_pixels_batched.launches = 0

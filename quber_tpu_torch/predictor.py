@@ -1,12 +1,28 @@
-"""MaskRefinerPredictor: single-frame refinement inference (torch).
+"""MaskRefinerPredictor: refinement inference (torch), one frame or a batch.
 
-Port of the single-frame path of quber_tpu/predictor.py (:227, :396-511,
-:1490-1547): mask encoding -> dual-trunk backbone -> hierarchical heads ->
-centre NMS -> pixel grouping -> merge and score, with the same output
-contract. Encoding and grouping go through the CUDA kernels of
-ops/kernels.py on the card, and through their plain versions when the
-predictor runs on the CPU (device="cpu"). Batched and streamed serving
-and the packed/RLE wire formats wait for a later slice.
+Port of quber_tpu/predictor.py:
+  * single frame (:227, :396-511, :1490-1547): `predict`, `predict_raw`:
+    mask encoding -> dual-trunk backbone -> hierarchical heads -> centre
+    NMS -> pixel grouping -> merge and score;
+  * batched and streamed serving in the dense input layout (:513-538,
+    :946-1009, :1081-1090, :1160-1200, :1231-1488): `predict_batch`,
+    `stage_frames`, `predict_batch_stream_staged`, `predict_batch_stream`
+    and the double-buffered single-frame `predict_stream`;
+  * `MultiScalePredictor` (:1550-1651).
+Encoding and grouping go through the CUDA kernels of ops/kernels.py on the
+card (the batched entry points launch each batched kernel once per batch),
+and through their plain versions when the predictor runs on the CPU
+(device="cpu").
+
+The serving entry points take the reference's packed input contract: each
+frame is (rgb [H, W, 3] uint8 BGR, depth [H, W, 3] or [H, W], masks [N, H,
+W]); only channel 0 of depth travels, cast to uint8, and is replicated to
+3 channels on the device; a mask pixel is set where it is > 0; only the
+masks handed in are valid. Each frame gives (panoptic [H, W] int32, count,
+scores float32 [top_k_instances + 2]). Panoptic ids are returned as they
+are: the reference's bit-plane output keeps (max_instances + 1).bit_length()
+bits of each id, the port all of them. The reference's packed, RLE and
+codec wire formats, its H2D stream tuner and mesh serving are not ported.
 
 Float32 throughout: on the card, TF32 is switched off for convolutions and
 matrix products (torch.backends.cudnn.allow_tf32 and
@@ -17,14 +33,24 @@ computes.
 
 from __future__ import annotations
 
+import collections
+import copy
+import dataclasses
+import queue
+import threading
+
 import numpy as np
 import torch
+import torch.nn.functional as F
 
+from quber_tpu_torch.data.mappers import bucket_shape, resize, resize_shortest_edge
 from quber_tpu_torch.models.from_jax import state_dict_from_jax
 from quber_tpu_torch.models.mask_refiner import MaskRefiner, MaskRefinerConfig
 from quber_tpu_torch.ops import kernels
 from quber_tpu_torch.ops.encoding import instance_stats
-from quber_tpu_torch.ops.grouping import find_instance_centers, merge_and_score
+from quber_tpu_torch.ops.grouping import find_instance_centers_batched, merge_and_score
+
+_END = object()
 
 
 def masks_to_boxes(masks: np.ndarray) -> np.ndarray:
@@ -37,8 +63,27 @@ def masks_to_boxes(masks: np.ndarray) -> np.ndarray:
     return boxes
 
 
+def _batches(frames, batch_size: int):
+    """Lists of up to batch_size frames, consuming `frames` lazily."""
+    batch = []
+    for frame in frames:
+        batch.append(frame)
+        if len(batch) == batch_size:
+            yield batch
+            batch = []
+    if batch:
+        yield batch
+
+
+def _images(img4: torch.Tensor) -> torch.Tensor:
+    """uint8 RGB-D [B, H, W, 4] -> float32 [B, 6, H, W]: RGB, then the depth
+    channel replicated 3 times (the reference's _unpack_buf)."""
+    x = img4.permute(0, 3, 1, 2).float()
+    return torch.cat([x[:, :3], x[:, 3:].expand(-1, 3, -1, -1)], dim=1)
+
+
 class MaskRefinerPredictor:
-    """Single-image refinement predictor.
+    """Refinement predictor.
 
     Args:
       config: model + post-processing configuration (default: flagship).
@@ -47,6 +92,10 @@ class MaskRefinerPredictor:
         with models.from_jax; None random-initialises from `seed`.
       max_instances: the most initial masks a frame may hand in.
       device: "cuda" (default) or "cpu".
+
+    `sync_events`: set it to a list to have each batch's host sync (the
+    batch-wide fast-K branch) append a pair of CUDA events around it; the
+    time between them is device time the compute stream spends idle.
     """
 
     def __init__(self, config: MaskRefinerConfig | None = None, params=None,
@@ -54,9 +103,13 @@ class MaskRefinerPredictor:
         self.config = config or MaskRefinerConfig()
         self.max_instances = max_instances
         self.device = torch.device(device)
+        self.sync_events = None
+        self._copy_stream = self._d2h_stream = None
         if self.device.type == "cuda":
             torch.backends.cudnn.allow_tf32 = False
             torch.backends.cuda.matmul.allow_tf32 = False
+            self._copy_stream = torch.cuda.Stream(self.device)
+            self._d2h_stream = torch.cuda.Stream(self.device)
         model = MaskRefiner(self.config)
         if params is None:
             model.reset_parameters(torch.Generator().manual_seed(seed))
@@ -70,29 +123,42 @@ class MaskRefinerPredictor:
         return kernels.encode_initial_masks(masks, valid & (areas > 0), centers,
                                             sigma=10, normalize=True)
 
-    def _pre(self, image, masks, valid):
-        """Everything before pixel grouping: encode -> forward -> centre NMS."""
+    def _heads(self, out):
+        """Model outputs [B, ...] -> the batch's pre-grouping dict: foreground
+        probability, centre map, offsets and the NMS'd centres per frame."""
         cfg = self.config
-        enc = self._encode(masks, valid)
-        out = self.model(image.permute(2, 0, 1)[None], enc[None])
-        fg_logit = out["foreground"][0, 0]
+        fg_logit = out["foreground"][:, 0]
         fg_prob = torch.sigmoid(fg_logit)
-        center = out["center"][0, 0]
-        centers, cvalid = find_instance_centers(
+        center = out["center"][:, 0]
+        centers, cvalid = find_instance_centers_batched(
             center, cfg.center_threshold, cfg.nms_kernel, cfg.top_k_instances)
         pre = {
             "sem_seg": fg_logit,
             "fg_prob": fg_prob,
             "fg_bin": torch.round(fg_prob).to(torch.int32),
             "center": center,
-            "offset": out["offset"][0],
+            "offset": out["offset"],
             "centers": centers,
             "centers_valid": cvalid,
         }
         for k in ("eee_mask", "eee_boundary"):
             if k in out:
-                pre[k] = out[k][0]
+                pre[k] = out[k]
         return pre
+
+    def _pre(self, image, masks, valid):
+        """Everything before pixel grouping: encode -> forward -> centre NMS."""
+        enc = self._encode(masks, valid)
+        pre = self._heads(self.model(image.permute(2, 0, 1)[None], enc[None]))
+        return {k: v[0] for k, v in pre.items()}
+
+    def _pre_batch(self, images, masks, valids):
+        """Batched pre stages (reference :946-967): one encode launch for the
+        batch, one forward over images [B, 6, H, W], batched centre NMS."""
+        areas, centers = instance_stats(masks, valids)
+        enc = kernels.encode_initial_masks_batched(masks, valids & (areas > 0), centers,
+                                                   sigma=10, normalize=True)
+        return self._heads(self.model(images, enc))
 
     def _post(self, pre, raw):
         cfg = self.config
@@ -132,9 +198,266 @@ class MaskRefinerPredictor:
                      centers_valid=pre["centers_valid"][:fk])
         raw = kernels.group_pixels(pre_s["centers"], pre_s["centers_valid"], pre["offset"])
         out = self._post(pre_s, raw)
-        out["instance_scores"] = torch.nn.functional.pad(
+        out["instance_scores"] = F.pad(
             out["instance_scores"], (0, self.config.top_k_instances - fk))
         return out
+
+    def _batch_k(self, cvalid):
+        """K the batch groups at (reference :513-538): fast_top_k when every
+        frame's survivors fit, else top_k_instances, so one crowded frame
+        sends the whole batch to the top_k path. The choice reads the
+        largest survivor count on the host, one device sync per batch,
+        where the reference branches on the device with lax.cond."""
+        fk = self._adaptive_fast_k()
+        if fk is None:
+            return self.config.top_k_instances
+        n_max = cvalid.sum(dim=1).max()
+        if self.sync_events is None or self.device.type != "cuda":
+            fits = int(n_max) <= fk
+        else:
+            waits, resumes = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            waits.record()
+            fits = int(n_max) <= fk
+            resumes.record()
+            self.sync_events.append((waits, resumes))
+        return fk if fits else self.config.top_k_instances
+
+    def _group_and_post_batch(self, pre):
+        """Batched grouping (one kernel launch) + merge/score frame by frame
+        -> (panoptic [B, H, W] int32, counts [B] int32, scores [B, top_k + 2]
+        f32, zero-padded past the K grouped at)."""
+        cfg = self.config
+        k = self._batch_k(pre["centers_valid"])
+        centers = pre["centers"][:, :k].contiguous()
+        cvalid = pre["centers_valid"][:, :k].contiguous()
+        raw = kernels.group_pixels_batched(centers, cvalid, pre["offset"].contiguous())
+        pans, counts, scores = [], [], []
+        for i in range(raw.shape[0]):
+            pano = merge_and_score(
+                pre["fg_bin"][i], pre["fg_prob"][i], pre["center"][i], raw[i], cvalid[i],
+                min_instance_area=cfg.min_instance_area, stuff_area=cfg.stuff_area)
+            pans.append(pano["panoptic"])
+            counts.append(pano["num_instances"])
+            scores.append(pano["scores"])
+        scores = F.pad(torch.stack(scores), (0, cfg.top_k_instances - k))
+        return torch.stack(pans), torch.stack(counts), scores
+
+    # ------------------------------------------------------------------
+    # Batched and streamed serving (dense layout)
+    # ------------------------------------------------------------------
+
+    def _assemble(self, frames, batch_size: int):
+        """Host side of a batch, the reference's _pack_batch (:1160-1200) in
+        its dense layout: uint8 RGB-D [B, H, W, 4], masks [B, N, H, W] bool
+        and valid [B, N] bool, in pinned memory when the predictor is on the
+        card. N is the batch's largest mask count (an invalid slot changes
+        no output). A partial batch is padded with copies of its first
+        frame. Returns ((img4, masks, valid), real)."""
+        cfg = self.config
+        h, w = cfg.height, cfg.width
+        real = len(frames)
+        frames = list(frames) + [frames[0]] * (batch_size - real)
+        counts = [min(len(f[2]), self.max_instances) for f in frames]
+        n = max(counts)
+        pin = self.device.type == "cuda"
+        img4 = torch.empty((batch_size, h, w, 4), dtype=torch.uint8, pin_memory=pin)
+        masks = torch.empty((batch_size, n, h, w), dtype=torch.bool, pin_memory=pin)
+        valid = torch.zeros((batch_size, n), dtype=torch.bool, pin_memory=pin)
+        img_np, masks_np, valid_np = img4.numpy(), masks.numpy(), valid.numpy()
+        for b, ((rgb, depth, fmasks), count) in enumerate(zip(frames, counts)):
+            rgb, depth = np.asarray(rgb), np.asarray(depth)
+            if rgb.shape[:2] != (h, w):
+                raise ValueError(f"predictor is configured for {h}x{w}, "
+                                 f"got {rgb.shape[0]}x{rgb.shape[1]}")
+            img_np[b, ..., :3] = np.asarray(rgb, np.uint8)
+            img_np[b, ..., 3] = np.asarray(depth[..., 0] if depth.ndim == 3 else depth,
+                                           np.uint8)
+            if count:
+                masks_np[b, :count] = np.asarray(fmasks[:count]) > 0
+            masks_np[b, count:] = False
+            valid_np[b, :count] = True
+        return (img4, masks, valid), real
+
+    def _upload(self, tensors):
+        """H2D on the current stream (non-blocking from pinned memory). The
+        pinned blocks go back to the host allocator's cache only once the
+        copy that reads them has completed."""
+        return tuple(t.to(self.device, non_blocking=True) for t in tensors)
+
+    def _uploaded_batches(self, frames, batch_size: int, stream=None):
+        """Assemble batches of `frames` (consumed lazily) and upload each, on
+        `stream` when given (then with the event of its copy) or on the
+        current stream. Yields (tensors, ready event or None, real)."""
+        for batch in _batches(frames, batch_size):
+            tensors, real = self._assemble(batch, batch_size)
+            if stream is None:
+                yield self._upload(tensors), None, real
+                continue
+            with torch.cuda.stream(stream):
+                tensors = self._upload(tensors)
+                ready = torch.cuda.Event()
+                ready.record(stream)
+            yield tensors, ready, real
+
+    def _to_host(self, outs):
+        """D2H of a batch's outputs on the D2H stream, after the work the
+        compute stream has enqueued: the next batch computes meanwhile.
+        Returns (host tensors, event of the copy, or None on the CPU)."""
+        if self.device.type != "cuda":
+            return outs, None
+        compute = torch.cuda.current_stream(self.device)
+        d2h = self._d2h_stream
+        d2h.wait_stream(compute)
+        with torch.cuda.stream(d2h):
+            host = tuple(torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                         .copy_(t, non_blocking=True) for t in outs)
+            done = torch.cuda.Event()
+            done.record(d2h)
+        for t in outs:
+            t.record_stream(d2h)
+        return host, done
+
+    def _dispatch(self, tensors, ready, real):
+        """Enqueue one device-resident batch on the current (compute) stream.
+        `ready` is the event of its H2D on the copy stream, or None when the
+        tensors are resident already or were copied on this stream."""
+        if ready is not None:
+            compute = torch.cuda.current_stream(self.device)
+            compute.wait_event(ready)
+            for t in tensors:
+                t.record_stream(compute)
+        img4, masks, valid = tensors
+        with torch.inference_mode():
+            outs = self._group_and_post_batch(self._pre_batch(_images(img4), masks, valid))
+        host, done = self._to_host(outs)
+        return host, done, real
+
+    @staticmethod
+    def _drain(pending):
+        """Blocking readback of one dispatched batch: its `real` frames."""
+        (pan, count, scores), done, real = pending
+        if done is not None:
+            done.synchronize()
+        for i in range(real):
+            yield pan[i].numpy().copy(), int(count[i]), scores[i].numpy().copy()
+
+    def _serve(self, batches, prefetch: int):
+        """Dispatch (tensors, ready, real) batches up to `prefetch` ahead of
+        the blocking readback; yield per-frame results in order."""
+        pending = collections.deque()
+        for tensors, ready, real in batches:
+            pending.append(self._dispatch(tensors, ready, real))
+            if len(pending) > prefetch:
+                yield from self._drain(pending.popleft())
+        while pending:
+            yield from self._drain(pending.popleft())
+
+    def predict_batch(self, frames):
+        """Refine a list of (rgb, depth, masks) frames as one batch (one
+        launch of each batched kernel, one forward). Returns a list of
+        (panoptic [H, W] int32, count, scores [top_k + 2] f32)."""
+        frames = list(frames)
+        tensors, real = self._assemble(frames, len(frames))
+        return list(self._serve([(self._upload(tensors), None, real)], prefetch=0))
+
+    def stage_frames(self, frames, batch_size: int = 8):
+        """Device-resident dense batches for predict_batch_stream_staged, so
+        that serving pays no H2D (the reference's stage_frames with
+        decode=True). The copies run on a side stream and are fenced before
+        this returns. Returns a list of ((img4, masks, valid), real)."""
+        side = self._copy_stream
+        staged = [(tensors, real) for tensors, _, real
+                  in self._uploaded_batches(frames, batch_size, side)]
+        if side is not None:
+            side.synchronize()
+            compute = torch.cuda.current_stream(self.device)
+            for tensors, _ in staged:
+                for t in tensors:
+                    t.record_stream(compute)
+        return staged
+
+    def predict_batch_stream_staged(self, staged, prefetch: int = 2):
+        """Serve batches from stage_frames, dispatching up to `prefetch`
+        batches ahead of the blocking readback. Yields (panoptic, count,
+        scores) for the real frames of each batch, in order."""
+        yield from self._serve(((t, None, real) for t, real in staged), prefetch)
+
+    def predict_batch_stream(self, frames, batch_size: int = 8, prefetch: int = 2):
+        """Stream frames in fixed-size batches (the last partial batch is
+        padded with its first frame) and yield (panoptic, count, scores) per
+        frame, in order.
+
+        A producer thread consumes `frames` lazily, fills pinned host
+        batches and copies them to the device on a copy stream, up to
+        `prefetch` batches ahead; the compute stream waits on each batch's
+        copy event, and each batch's outputs go back on a D2H stream while
+        the next batch computes. An exception raised by `frames` is raised
+        here; closing the generator stops the producer. `prefetch=0` runs
+        everything inline."""
+        if prefetch <= 0:
+            yield from self._serve(self._uploaded_batches(frames, batch_size), 0)
+            return
+
+        q: queue.Queue = queue.Queue(maxsize=prefetch)
+        stop = threading.Event()
+
+        def put(item) -> bool:
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    pass
+            return False  # the consumer abandoned the generator
+
+        def producer():
+            try:
+                for item in self._uploaded_batches(frames, batch_size, self._copy_stream):
+                    if not put(item):
+                        return
+                put(_END)
+            except Exception as e:  # raised again in the consumer
+                put(e)
+
+        def batches():
+            while True:
+                item = q.get()
+                if item is _END:
+                    return
+                if isinstance(item, Exception):
+                    raise item
+                yield item
+
+        thread = threading.Thread(target=producer, daemon=True)
+        thread.start()
+        try:
+            yield from self._serve(batches(), prefetch)
+        finally:
+            stop.set()
+            thread.join(timeout=5.0)
+
+    def predict_stream(self, frames):
+        """Single-frame serving with double buffering: frame t+1's upload
+        and compute are enqueued before frame t's results are read back.
+        Same input contract and per-frame outputs as predict_batch_stream;
+        runs the single-frame kernels."""
+        prev = None
+        for (img4, masks, valid), _, _ in self._uploaded_batches(frames, 1):
+            with torch.inference_mode():
+                image = _images(img4)[0].permute(1, 2, 0)
+                out = self._group_and_post(self._pre(image, masks[0], valid[0]))
+            outs = (out["panoptic_seg"][None], out["num_instances"][None],
+                    out["instance_scores"][None])
+            cur = (*self._to_host(outs), 1)
+            if prev is not None:
+                yield from self._drain(prev)
+            prev = cur
+        if prev is not None:
+            yield from self._drain(prev)
+
+    # ------------------------------------------------------------------
+    # Single frame
+    # ------------------------------------------------------------------
 
     def _assemble_image(self, rgb_img, depth_img):
         cfg = self.config
@@ -194,3 +517,84 @@ class MaskRefinerPredictor:
                 "pred_boxes": masks_to_boxes(masks),
             }
         return [out]
+
+
+class MultiScalePredictor:
+    """Arbitrary-resolution predict via ResizeShortestEdge + shape buckets
+    (reference :1550-1651): the shorter side is scaled to `short` (the
+    longer capped at `max_size`), padded up to a /`divisor` bucket, refined
+    by that bucket's predictor, and the outputs are cropped and resized
+    back to the input size. Every bucket shares the one MaskRefiner module
+    on the device; a new bucket costs a predictor object, not a weight
+    upload. Resizing runs with torch on the predictor's device
+    (data.mappers.resize), not with OpenCV.
+    """
+
+    def __init__(self, config: MaskRefinerConfig | None = None, params=None,
+                 short: int = 480, max_size: int = 640, divisor: int = 32,
+                 **predictor_kwargs):
+        self.base_cfg = config or MaskRefinerConfig()
+        self.short = short
+        self.max_size = max_size
+        self.divisor = divisor
+        proto = MaskRefinerPredictor(self.base_cfg, params=params, **predictor_kwargs)
+        self._cache = {(self.base_cfg.height, self.base_cfg.width): proto}
+
+    def _predictor_for(self, ph: int, pw: int) -> MaskRefinerPredictor:
+        key = (ph, pw)
+        if key not in self._cache:
+            pred = copy.copy(next(iter(self._cache.values())))  # shares the module
+            pred.config = dataclasses.replace(self.base_cfg, height=ph, width=pw)
+            self._cache[key] = pred
+        return self._cache[key]
+
+    @property
+    def num_buckets(self) -> int:
+        return len(self._cache)
+
+    def predict(self, rgb_img, depth_img=None, perturbed_masks=None):
+        rgb_img = np.asarray(rgb_img)
+        h0, w0 = rgb_img.shape[:2]
+        rh, rw = resize_shortest_edge(h0, w0, self.short, self.max_size)
+        ph, pw = bucket_shape(rh, rw, self.divisor)
+        pred = self._predictor_for(ph, pw)
+        dev = pred.device
+
+        def to_bucket(img, interp):
+            img = np.asarray(img)
+            if img.shape[:2] != (rh, rw):
+                img = resize(img, (rh, rw), interp, dev)
+            pads = [(0, ph - rh), (0, pw - rw)] + [(0, 0)] * (img.ndim - 2)
+            return np.pad(img, pads)
+
+        rgb_b = to_bucket(rgb_img, "linear")
+        depth_b = (to_bucket(depth_img, "nearest") if depth_img is not None
+                   else np.zeros((ph, pw, 3), np.float32))
+        masks_b = [to_bucket((np.asarray(m) > 0).astype(np.uint8), "nearest") > 0.5
+                   for m in ([] if perturbed_masks is None else perturbed_masks)]
+        out = pred.predict(rgb_b, depth_b, masks_b)[0]
+
+        def back(arr, interp, channels_first=False):
+            arr = np.asarray(arr, np.float32)
+            if channels_first:  # [C, H, W] (reference sem-seg layout)
+                arr = np.transpose(arr, (1, 2, 0))
+            arr = resize(arr[:rh, :rw], (h0, w0), interp, dev)
+            return np.transpose(arr, (2, 0, 1)) if channels_first else arr
+
+        pan = back(out["panoptic_seg"][0], "nearest").astype(np.int32)
+        res = {"sem_seg": back(out["sem_seg"], "linear"), "panoptic_seg": (pan, None)}
+        for k in ("eee_mask", "eee_boundary"):
+            if k in out:
+                res[k] = back(out[k], "linear", channels_first=True)
+        if "instances" in out:
+            n = len(out["instances"]["scores"])
+            masks = pan[None] == np.arange(1, n + 1)[:, None, None]
+            keep = masks.any(axis=(1, 2))
+            masks = masks[keep]
+            res["instances"] = {
+                "pred_masks": masks,
+                "scores": out["instances"]["scores"][keep],
+                "pred_classes": np.zeros((len(masks),), np.int64),
+                "pred_boxes": masks_to_boxes(masks),
+            }
+        return [res]

@@ -9,7 +9,11 @@ the in-repo int8 flagship weights, then reports:
     predict() (uploads, readback, instance extraction);
   * a torch.profiler trace of a few frames: the device-busy share of the
     wall time and the top kernels by device time (key_averages), written
-    with the Chrome trace under --out.
+    with the Chrome trace under --out;
+  * the same for staged batched serving of 24 frames in batches of 8:
+    per-stage device time of a batch (encode, forward, heads + centre NMS,
+    group + merge with its host sync), the forward's rate, and the
+    device-busy share of a profiled staged pass.
 Needs CUDA, as chip_smoke.py does.
 """
 
@@ -26,6 +30,79 @@ import numpy as np
 import torch
 
 FRAMES = 8
+BATCH = 8
+BATCH_FRAMES = 24
+
+
+def _device_busy(fn):
+    """(wall ms, device ms, key_averages) of fn() under torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    # device-side rows only (kernels, copies, memsets): operator rows carry
+    # their kernels' time too and would count it twice
+    device_rows = [e for e in events if e.device_type == DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in device_rows) / 1e3
+    return wall_ms, device_ms, prof, device_rows
+
+
+def _batch_stage_times(pred, tensors):
+    """Device ms of each stage of one staged batch (CUDA events); the
+    stages of MaskRefinerPredictor._dispatch, spelled out."""
+    from quber_tpu_torch.ops import kernels
+    from quber_tpu_torch.ops.encoding import instance_stats
+    from quber_tpu_torch.predictor import _images
+
+    img4, masks, valid = tensors
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    with torch.inference_mode():
+        ev[0].record()
+        areas, centers = instance_stats(masks, valid)
+        enc = kernels.encode_initial_masks_batched(masks, valid & (areas > 0), centers)
+        ev[1].record()
+        out = pred.model(_images(img4), enc)
+        ev[2].record()
+        pre = pred._heads(out)
+        ev[3].record()
+        pred._group_and_post_batch(pre)
+        ev[4].record()
+    torch.cuda.synchronize()
+    return {n: ev[i].elapsed_time(ev[i + 1]) for i, n in enumerate(
+        ("encode", "forward", "heads_and_centre_nms", "group_and_merge"))}
+
+
+def _batched_report(pred, h, w, forward_flop, out_dir):
+    """Stage times, forward rate and device-busy share of staged serving."""
+    from quber_tpu_torch.data.synthetic import blob_scene
+
+    frames = []
+    for i in range(BATCH_FRAMES):
+        rng = np.random.RandomState(200 + i)
+        frames.append(blob_scene(rng, h, w, rng.randint(3, 9)))
+    staged = pred.stage_frames(frames, BATCH)
+    list(pred.predict_batch_stream_staged(staged))  # warm-up: cuDNN at B = 8
+    torch.cuda.synchronize()
+    per_batch = [_batch_stage_times(pred, t) for t, _ in staged]
+    med = {k: statistics.median(p[k] for p in per_batch) for k in per_batch[0]}
+    wall_ms, device_ms, prof, device_rows = _device_busy(
+        lambda: list(pred.predict_batch_stream_staged(staged)))
+    prof.export_chrome_trace(os.path.join(out_dir, "staged_trace.json"))
+    top = sorted(device_rows, key=lambda e: e.self_device_time_total, reverse=True)[:10]
+    return {
+        "top_kernels": [{"name": e.key[:80], "calls": e.count,
+                         "device_ms": e.self_device_time_total / 1e3} for e in top],
+        "batch": BATCH, "frames": BATCH_FRAMES,
+        "stages_median_ms_per_batch": med,
+        "forward_tflop_per_s": BATCH * forward_flop / med["forward"] / 1e9,
+        "profiled_staged_wall_ms": wall_ms, "profiled_staged_device_ms": device_ms,
+        "device_busy_share": device_ms / wall_ms if wall_ms else None,
+    }
 
 
 def _stage_times(pred, frame):
@@ -100,27 +177,20 @@ def main():
                    torch.zeros((1, 3, h, w), device="cuda"))
     forward_flop = fc.get_total_flops()
 
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     os.makedirs(args.out, exist_ok=True)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+
+    def four_frames():
         for f in frames[:4]:
             pred.predict(*f)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+
+    wall_ms, device_ms, prof, device_rows = _device_busy(four_frames)
     prof.export_chrome_trace(os.path.join(args.out, "predict_trace.json"))
-    events = prof.key_averages()
-    # device-side rows only (kernels, copies, memsets): operator rows carry
-    # their kernels' time too and would count it twice
-    device_rows = [e for e in events if e.device_type == DeviceType.CUDA]
-    device_ms = sum(e.self_device_time_total for e in device_rows) / 1e3
     top = sorted(device_rows, key=lambda e: e.self_device_time_total, reverse=True)[:25]
     table = [{"name": e.key[:80], "calls": e.count,
               "device_ms": e.self_device_time_total / 1e3} for e in top]
     with open(os.path.join(args.out, "key_averages.txt"), "w") as fh:
-        fh.write(events.table(sort_by="self_device_time_total", row_limit=60))
+        fh.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=60))
+    batched = _batched_report(pred, h, w, forward_flop, args.out)
     print(json.dumps({
         "card": smi,
         "stages_median_ms": med,
@@ -130,6 +200,7 @@ def main():
         "profiled_device_ms": device_ms,
         "device_busy_share": device_ms / wall_ms if wall_ms else None,
         "top_kernels": table,
+        "batched_staged": batched,
     }, indent=1))
 
 

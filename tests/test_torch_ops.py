@@ -15,7 +15,9 @@ import torch
 
 from quber_tpu.ops import encoding as JE
 from quber_tpu.ops import grouping as JG
-from quber_tpu.ops.pallas_kernels import encode_initial_masks_pallas, group_pixels_pallas
+from quber_tpu.ops.pallas_kernels import (
+    encode_initial_masks_pallas, encode_initial_masks_pallas_batched, group_pixels_pallas,
+    group_pixels_pallas_batched)
 from quber_tpu_torch.ops import encoding as TE
 from quber_tpu_torch.ops import grouping as TG
 from quber_tpu_torch.ops import kernels as TK
@@ -178,3 +180,113 @@ def test_merge_and_score_matches_jax(rng, blobs, with_centers):
     np.testing.assert_array_equal(got["areas"].numpy(), np.asarray(want["areas"]))
     np.testing.assert_allclose(got["scores"].numpy(), np.asarray(want["scores"]),
                                rtol=1e-5, atol=1e-7)
+
+
+# --- batched twins: the plain batched versions against the batched Pallas
+# kernels (interpret mode), frame by frame ---
+
+def _batched_mask_case(rng, blobs, h, w):
+    """[B=4, N=6, H, W] masks with a different number of valid slots per
+    frame (4, 6, 2, 0), an overlapping pair, an empty valid slot and a frame
+    with no valid slot at all."""
+    n = 6
+    masks = np.zeros((4, n, h, w), bool)
+    valid = np.zeros((4, n), bool)
+    for b, n_valid in enumerate((4, 6, 2, 0)):
+        masks[b] = blobs(rng, n, h, w, min_r=4, max_r=min(h, w) // 4) > 0
+        valid[b, :n_valid] = True
+    masks[0, 1] |= masks[0, 0]  # last-wins owner
+    masks[1, 3] = False  # valid but empty
+    return masks, valid
+
+
+@pytest.mark.parametrize("size", [(64, 128), (33, 41)])
+@pytest.mark.parametrize("normalize", [True, False])
+def test_encode_batched_matches_pallas(rng, blobs, size, normalize):
+    masks, valid = _batched_mask_case(rng, blobs, *size)
+    ja, jc = JE.instance_stats(jnp.asarray(masks.reshape(-1, *size)),
+                               jnp.asarray(valid.reshape(-1)))
+    ok = jnp.asarray(valid) & (ja.reshape(valid.shape) > 0)
+    pallas = np.asarray(encode_initial_masks_pallas_batched(
+        jnp.asarray(masks), ok, jc.reshape(*valid.shape, 2), sigma=10,
+        normalize=normalize, interpret=True))
+    ta, tc = TE.instance_stats(_t(masks), _t(valid))
+    got = TK.encode_initial_masks_batched(_t(masks), _t(valid) & (ta > 0), tc,
+                                          normalize=normalize).numpy()
+    assert got.shape == pallas.shape == (4, 3, *size)
+    for b in range(4):
+        np.testing.assert_allclose(got[b, 0], pallas[b, 0], atol=1e-6, rtol=0, err_msg=str(b))
+        np.testing.assert_allclose(got[b, 1:], pallas[b, 1:], atol=1e-5, rtol=0, err_msg=str(b))
+    np.testing.assert_array_equal(got[3], 0.0)  # the frame with no valid slot
+
+
+def test_instance_stats_batched_matches_frames(rng, blobs):
+    masks, valid = _batched_mask_case(rng, blobs, 48, 64)
+    areas, centers = TE.instance_stats(_t(masks), _t(valid))
+    for b in range(4):
+        fa, fc = TE.instance_stats(_t(masks[b]), _t(valid[b]))
+        torch.testing.assert_close(areas[b], fa, rtol=0, atol=0)
+        torch.testing.assert_close(centers[b], fc, rtol=0, atol=0)
+
+
+def _batched_group_case(rng, blobs, k):
+    """[B=3] frames at 64x128 with 3, 5 and 0 valid centres (of k), centres
+    from the encoded blobs and random offsets."""
+    h, w = 64, 128
+    centers = np.zeros((3, k, 2), np.int32)
+    valid = np.zeros((3, k), bool)
+    offsets = np.zeros((3, 2, h, w), np.float32)
+    for b, n_valid in enumerate((3, 5, 0)):
+        masks = blobs(rng, 5, h, w, min_r=8, max_r=16)
+        enc = np.asarray(JE.encode_initial_masks(jnp.asarray(masks), normalize=False))
+        c, _ = JG.find_instance_centers(jnp.asarray(enc[0]), 0.3, 7, k)
+        centers[b] = np.asarray(c)
+        centers[b, :n_valid] = np.stack([rng.randint(0, h, n_valid),
+                                         rng.randint(0, w, n_valid)], -1)
+        valid[b, :n_valid] = True
+        offsets[b] = enc[1:] + rng.randn(2, h, w).astype(np.float32)
+    return centers, valid, offsets
+
+
+@pytest.mark.parametrize("k", [200, 32])
+def test_group_pixels_batched_matches_pallas(rng, blobs, k):
+    centers, valid, offsets = _batched_group_case(rng, blobs, k)
+    jc, jv, jo = jnp.asarray(centers), jnp.asarray(valid), jnp.asarray(offsets)
+    pallas = np.asarray(group_pixels_pallas_batched(jc, jv, jo, interpret=True))
+    got = TK.group_pixels_batched(_t(centers), _t(valid), _t(offsets)).numpy()
+    assert got.shape == pallas.shape == (3, 64, 128) and got.dtype == np.int32
+    for b in range(3):
+        np.testing.assert_array_equal(got[b], pallas[b], err_msg=str(b))
+        np.testing.assert_array_equal(
+            got[b], np.asarray(JG.group_pixels(jc[b], jv[b], jo[b])), err_msg=str(b))
+    assert (got[2] == 1).all()  # every centre invalid: argmin index 0
+
+
+def test_batched_wrappers_take_plain_versions_on_cpu(rng, blobs):
+    masks, valid = _batched_mask_case(rng, blobs, 24, 40)
+    areas, centers = TE.instance_stats(_t(masks), _t(valid))
+    ok = _t(valid) & (areas > 0)
+    cen, val, off = (_t(a) for a in _batched_group_case(rng, blobs, 32))
+    TK.reset_launch_counts()
+    enc = TK.encode_initial_masks_batched(_t(masks), ok, centers)
+    ids = TK.group_pixels_batched(cen, val, off)
+    assert TK.encode_initial_masks_batched.launches == 0  # the CPU runs no kernel
+    assert TK.group_pixels_batched.launches == 0
+    torch.testing.assert_close(enc, TE.encode_from_stats_batched(_t(masks), ok, centers),
+                               rtol=0, atol=0)
+    for b in range(3):
+        torch.testing.assert_close(ids[b], TG.group_pixels(cen[b], val[b], off[b]),
+                                   rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("top_k", [200, 32])
+def test_find_instance_centers_batched_matches_jax(rng, blobs, top_k):
+    heats = np.stack([_heatmap(rng, blobs) for _ in range(3)])
+    heats[2] = 0.0  # no peak above the threshold
+    tc, tv = TG.find_instance_centers_batched(_t(heats), 0.3, 7, top_k)
+    assert tc.shape == (3, top_k, 2) and tv.shape == (3, top_k)
+    for b in range(3):
+        jc, jv = JG.find_instance_centers(jnp.asarray(heats[b]), 0.3, 7, top_k)
+        np.testing.assert_array_equal(tv[b].numpy(), np.asarray(jv))
+        np.testing.assert_array_equal(tc[b].numpy(), np.asarray(jc))
+    assert not tv[2].any()
