@@ -5,26 +5,34 @@
 
 Phases (any failure ends the run with a non-zero exit code):
   1. print the card's name and power limit (nvidia-smi);
-  2. build the CUDA kernels from quber_tpu_torch/ops/csrc into build/kernels/;
+  2. build the CUDA kernels from quber_tpu_torch/ops/csrc into build/kernels/,
+     and time a kernel that does nothing through the same launch path: the
+     floor of every kernel time below (printed as floor_ms);
   3. hold each kernel against its plain torch version on the card at the
-     main path's shapes (encode: 64 masks at 480x640; group: K = 32 and
-     K = 200 and an all-invalid table) -- ids exact, encode within 1e-6 --
-     and time kernel and plain version with CUDA events (median of 30,
-     L2 flushed before each);
+     main path's shapes (instance statistics and encode: 64 masks at
+     480x640; group: K = 32 and K = 200 and an all-invalid table) -- areas,
+     centroids and ids exact, encode within 1e-6 -- and time kernel and
+     plain version with CUDA events (median of 30, L2 flushed before each);
+     then the shapes that the kernels treat specially, untimed: a 359x477
+     frame and views that are not 16-byte aligned (the scalar variants), a
+     361x400 frame (ragged tiles), 300 ok instances (owners above 255), no
+     instance and one, K = 1, K = 33, K = 4096 with the only valid centre
+     last, and B = 8 at 359x477;
   4. serve 8 seeded synthetic 480x640 frames through
      MaskRefinerPredictor(device="cuda").predict with the in-repo int8
-     flagship weights, and check that both kernels were launched;
+     flagship weights, and check that the three kernels were launched;
   5. run the first frame again on the CPU and require the same instance
      count and >= 99.5% panoptic agreement;
   6. hold the batched kernels against their plain versions at B = 8 and
-     480x640 in every frame (encode: 64 slots, a different number of ok
+     480x640 in every frame (instance statistics and encode: 64 slots, a different number of ok
      instances per frame, empty and invalid slots, a frame with none valid;
      group: K = 32 and K = 200, a different valid count per frame, a frame
-     with none valid) -- ids exact, encode within 1e-6 -- and time them as
-     in phase 3;
+     with none valid) -- statistics and ids exact, encode within 1e-6 -- and
+     time them as in phase 3;
   7. serve 20 seeded frames through predict_batch in batches of 8 (the last
      one padded with copies of its first frame), require one launch of each
-     batched kernel per batch and none of the single-frame ones, and per
+     batched kernel and of the statistics kernel per batch and none of the
+     single-frame ones, and per
      frame the single-frame predict's instance count and >= 99.5% of its
      panoptic labels;
   8. serve the same frames through stage_frames + predict_batch_stream_staged
@@ -34,7 +42,7 @@ Phases (any failure ends the run with a non-zero exit code):
      after a warm one), and the device time the per-batch host sync leaves
      the compute stream idle;
   9. refine one 360x480 frame through MultiScalePredictor (480x640 bucket):
-     finite outputs of the input's size, encode and group kernels launched;
+     finite outputs of the input's size, all three kernels launched;
  10. print a JSON line of the kernels' numbers, the frame time, and as the
      last line {"ok": true, "device": {...}}.
 Needs CUDA; it has no CPU mode.
@@ -100,6 +108,140 @@ def _ellipse_masks(rng, n, h, w):
     return out
 
 
+def _check_stats(tag, masks, valid):
+    """The statistics kernel against its plain version, exactly; returns the
+    kernel's (areas, centers, ok)."""
+    from quber_tpu_torch.ops import encoding, kernels
+
+    got = kernels.instance_stats(masks, valid, return_ok=True)
+    areas, centers = encoding.instance_stats(masks, valid)
+    want = (areas, centers, valid & (areas > 0))
+    torch.cuda.synchronize()
+    same = [torch.equal(g, w) for g, w in zip(got, want)]
+    print(f"instance_stats {tag}: areas, centroids, ok equal to the plain version's: {same} "
+          f"(tolerance 0)")
+    if not all(same):
+        raise AssertionError(f"instance_stats kernel disagrees with its plain version ({tag})")
+    return got
+
+
+def _stats_case(masks, valid, flush):
+    """Times of the statistics kernel and its plain version, and its bound:
+    every valid row read once."""
+    from quber_tpu_torch.ops import encoding, kernels
+
+    hw = masks.shape[-2] * masks.shape[-1]
+    slots, n_valid = valid.numel(), int(valid.sum())
+    bound_ms, bound_by = _bound(n_valid * hw + slots * (1 + 13), n_valid * hw * 3)
+    return {
+        "shape": f"masks {list(masks.shape)} bool, {n_valid} valid",
+        "ms": _time_ms(lambda: kernels.instance_stats(masks, valid, return_ok=True), flush),
+        "plain_ms": _time_ms(lambda: encoding.instance_stats(masks, valid), flush),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+    }
+
+
+def _check_encode(tag, masks, valid):
+    """Statistics and encode kernels against their plain versions for a frame
+    [N, H, W] or a batch [B, N, H, W]."""
+    from quber_tpu_torch.ops import encoding, kernels
+
+    _, centers, ok = _check_stats(tag, masks, valid)
+    if masks.dim() == 4:
+        got = kernels.encode_initial_masks_batched(masks, ok, centers)
+        want = encoding.encode_from_stats_batched(masks, ok, centers)
+    else:
+        got = kernels.encode_initial_masks(masks, ok, centers)
+        want = encoding.encode_from_stats(masks, ok, centers)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    print(f"encode_initial_masks {tag}, {int(ok.sum())} ok: max |kernel - plain| = {err:.3g} "
+          f"(tolerance {ENCODE_ATOL})")
+    if got.shape != want.shape or not err <= ENCODE_ATOL:
+        raise AssertionError(f"encode kernel disagrees with its plain version ({tag})")
+
+
+def _check_group(tag, cen, val, offsets):
+    from quber_tpu_torch.ops import grouping, kernels
+
+    if offsets.dim() == 4:
+        got = kernels.group_pixels_batched(cen, val, offsets)
+        want = grouping.group_pixels_batched(cen, val, offsets)
+    else:
+        got = kernels.group_pixels(cen, val, offsets)
+        want = grouping.group_pixels(cen, val, offsets)
+    torch.cuda.synchronize()
+    mismatches = int((got != want).sum())
+    print(f"group_pixels {tag}, {int(val.sum())} valid: {mismatches} ids differ (tolerance 0)")
+    if got.shape != want.shape or mismatches:
+        raise AssertionError(f"group kernel disagrees with its plain version ({tag})")
+
+
+def _unaligned(t):
+    """A contiguous copy of `t` whose storage starts one element past a
+    16-byte boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    assert view.is_contiguous() and view.data_ptr() % 16 != 0
+    return view
+
+
+def check_edge_cases(dev):
+    """The shapes the kernels treat specially, each against its plain version
+    with the tolerances of phase 3 (no timing)."""
+    rng = np.random.RandomState(7)
+    h2, w2 = 359, 477  # H * W is odd: scalar variants
+
+    def stack(n, h, w, invalid=()):
+        valid = np.ones(n, bool)
+        valid[list(invalid)] = False
+        return (torch.from_numpy(_ellipse_masks(rng, n, h, w)).to(dev),
+                torch.from_numpy(valid).to(dev))
+
+    masks, valid = stack(12, h2, w2, invalid=(3,))
+    _check_encode(f"N=12 {h2}x{w2}", masks, valid)
+    # a stack sliced off by one instance from a buffer whose H * W is odd
+    _check_encode(f"N=11 {h2}x{w2}, sliced view", masks[1:], valid[1:])
+    masks, valid = stack(12, H, W, invalid=(5,))
+    _check_encode(f"N=12 {H}x{W}, unaligned view", _unaligned(masks), valid)
+    masks, valid = stack(9, 361, 400, invalid=(0,))
+    _check_encode("N=9 361x400 (ragged tiles)", masks, valid)
+    masks, valid = stack(330, H, W, invalid=range(0, 330, 11))
+    _check_encode(f"N=330 {H}x{W}", masks, valid)
+    del masks
+    _check_encode(f"N=0 {H}x{W}", torch.zeros((0, H, W), dtype=torch.bool, device=dev),
+                  torch.zeros((0,), dtype=torch.bool, device=dev))
+    _check_encode(f"N=1 {H}x{W}", *stack(1, H, W))
+    masks_np = np.stack([_ellipse_masks(rng, 12, h2, w2) for _ in range(BATCH)])
+    valid_np = np.arange(12)[None] < np.array((12, 9, 1, 0, 5, 12, 7, 3))[:, None]
+    _check_encode(f"B={BATCH} N=12 {h2}x{w2}", torch.from_numpy(masks_np).to(dev),
+                  torch.from_numpy(valid_np).to(dev))
+
+    def table(k, valid_idx, h, w, lead=()):
+        cen = np.stack([rng.randint(0, h, lead + (k,)), rng.randint(0, w, lead + (k,))], -1)
+        val = np.zeros(lead + (k,), bool)
+        val[..., list(valid_idx)] = True
+        return (torch.from_numpy(cen.astype(np.int32)).to(dev), torch.from_numpy(val).to(dev))
+
+    def field(h, w, lead=()):
+        return torch.from_numpy(rng.randn(*lead, 2, h, w).astype(np.float32) * 20).to(dev)
+
+    offsets = field(H, W)
+    _check_group(f"K=1 {H}x{W}", *table(1, (0,), H, W), offsets)
+    _check_group(f"K=33 {H}x{W}", *table(33, range(0, 33, 2), H, W), offsets)
+    _check_group(f"K=4096 {H}x{W}, last valid", *table(4096, (4095,), H, W), offsets)
+    _check_group(f"K=33 {H}x{W}, unaligned view", *table(33, range(20), H, W),
+                 _unaligned(offsets))
+    _check_group("K=4096 120x160, every third valid",
+                 *table(4096, range(0, 4096, 3), 120, 160), field(120, 160))
+    _check_group(f"K=33 {h2}x{w2}", *table(33, range(20), h2, w2), field(h2, w2))
+    cen, val = table(33, range(33), h2, w2, lead=(BATCH,))
+    val &= torch.from_numpy(np.arange(33)[None] < np.array(
+        (33, 20, 1, 0, 5, 33, 7, 3))[:, None]).to(dev)
+    _check_group(f"B={BATCH} K=33 {h2}x{w2}", cen, val, field(h2, w2, lead=(BATCH,)))
+
+
 def check_kernels(dev, flush):
     from quber_tpu_torch.ops import encoding, grouping, kernels
 
@@ -114,8 +256,14 @@ def check_kernels(dev, flush):
     valid_np[[20, 50]] = False
     masks = torch.from_numpy(masks_np).to(dev)
     valid = torch.from_numpy(valid_np).to(dev)
-    areas, centers = encoding.instance_stats(masks, valid)
-    ok = valid & (areas > 0)
+    _, centers, ok = _check_stats(f"N={N_MASKS} {H}x{W}", masks, valid)
+    stats_row = {
+        "name": "instance_stats", "route": "cuda",
+        "source": "quber_tpu_torch/ops/csrc/kernels.cu",
+        "replaces": "quber_tpu/ops/encoding.py:30",
+        **_stats_case(masks, valid, flush), "max_abs_err": 0.0, "tolerance": 0,
+        "library_ms": None,
+    }
     got = kernels.encode_initial_masks(masks, ok, centers)
     want = encoding.encode_from_stats(masks, ok, centers)
     torch.cuda.synchronize()
@@ -167,7 +315,7 @@ def check_kernels(dev, flush):
         "library_ms": None,
         "k200": cases[200],
     })
-    return rows
+    return rows, stats_row
 
 
 def serve_frames(dev):
@@ -194,13 +342,16 @@ def serve_frames(dev):
         times.append((time.perf_counter() - t0) * 1e3)
         results.append(out)
     launches = {"encode_initial_masks": kernels.encode_initial_masks.launches,
-                "group_pixels": kernels.group_pixels.launches}
+                "group_pixels": kernels.group_pixels.launches,
+                "instance_stats": kernels.instance_stats.launches}
     counts = [len(r.get("instances", {}).get("scores", [])) for r in results]
     print(f"main path: {N_FRAMES} frames, initial masks "
           f"{[len(f[2]) for f in frames]}, refined instances {counts}, launches {launches}")
     for name, n in launches.items():
         if n == 0:
             raise AssertionError(f"{name} kernel was not launched on the main path")
+    if launches["instance_stats"] != N_FRAMES:
+        raise AssertionError("instance_stats was not launched once per frame")
     if not any(counts):
         raise AssertionError("no frame produced an instance")
     for r in results:
@@ -242,8 +393,8 @@ def check_batched_kernels(dev, flush):
     valid_np[:, 20] = False
     masks = torch.from_numpy(masks_np).to(dev)
     valid = torch.from_numpy(valid_np).to(dev)
-    areas, centers = encoding.instance_stats(masks, valid)
-    ok = valid & (areas > 0)
+    _, centers, ok = _check_stats(f"B={BATCH} N={N_MASKS} {H}x{W}", masks, valid)
+    stats_b8 = _stats_case(masks, valid, flush)
     got = kernels.encode_initial_masks_batched(masks, ok, centers)
     want = encoding.encode_from_stats_batched(masks, ok, centers)
     torch.cuda.synchronize()
@@ -304,7 +455,7 @@ def check_batched_kernels(dev, flush):
         "library_ms": None,
         "k200": cases[200],
     })
-    return rows
+    return rows, stats_b8
 
 
 def _launch_counts():
@@ -312,12 +463,12 @@ def _launch_counts():
 
     return {name: getattr(kernels, name).launches for name in (
         "encode_initial_masks", "group_pixels",
-        "encode_initial_masks_batched", "group_pixels_batched")}
+        "encode_initial_masks_batched", "group_pixels_batched", "instance_stats")}
 
 
 def _check_launches(path, launches, n_batches):
     print(f"{path}: launches {launches}")
-    for name in ("encode_initial_masks_batched", "group_pixels_batched"):
+    for name in ("encode_initial_masks_batched", "group_pixels_batched", "instance_stats"):
         if launches[name] != n_batches:
             raise AssertionError(f"{path}: {name} launched {launches[name]} times "
                                  f"for {n_batches} batches")
@@ -450,7 +601,7 @@ def multiscale(params):
         raise AssertionError("eee_mask is not a finite map of the input's size")
     if list(ms._cache) != [(H, W)]:
         raise AssertionError("the frame did not go into the 480x640 bucket")
-    for name in ("encode_initial_masks", "group_pixels"):
+    for name in ("encode_initial_masks", "group_pixels", "instance_stats"):
         if not launches[name]:
             raise AssertionError(f"MultiScalePredictor did not launch {name}")
 
@@ -477,25 +628,34 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
-    rows = check_kernels(dev, flush)
+    floor_ms = _time_ms(lambda: kernels.empty_launch(dev), flush)
+    print(f"floor_ms {floor_ms:.6f}: an empty kernel through the same launch path and timing "
+          f"(median of 30) on {card}")
+    rows, stats_row = check_kernels(dev, flush)
     del flush
+    check_edge_cases(dev)
 
     params, frames, results, times, launches = serve_frames(dev)
-    for row in rows:
+    for row in rows + [stats_row]:
         row["launches"] = launches[row["name"]]
         row["kernel_ms"] = row["ms"]
         row["bound_us"] = row["bound_ms"] * 1e3
     cpu_parity(params, frames[0], results[0])
 
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
-    batched_rows = check_batched_kernels(dev, flush)
+    batched_rows, stats_b8 = check_batched_kernels(dev, flush)
     del flush
     batched_launches, _ = serve_batched(params, card)
     for row in batched_rows:
         row["launches"] = batched_launches[row["name"]]
         row["kernel_ms"] = row["ms"]
         row["bound_us"] = row["bound_ms"] * 1e3
-    rows += batched_rows
+    # one statistics wrapper serves both paths: its row holds B = 1 and B = 8
+    stats_b8["launches"] = batched_launches["instance_stats"]
+    stats_row["b8"] = stats_b8
+    rows += batched_rows + [stats_row]
+    for row in rows:
+        row["floor_ms"] = floor_ms
     multiscale(params)
 
     steady = times[1:]

@@ -4,7 +4,9 @@ Port of quber_tpu/ops/encoding.py:30-147. `encode_from_stats` (and its
 batched twin `encode_from_stats_batched`) is the plain version the CUDA
 encode kernel (ops/kernels.py) is held against; it takes the same
 arguments as the kernel: the mask stack, the instances to encode (valid
-and non-empty) and their float centroids from `instance_stats`.
+and non-empty) and their float centroids from `instance_stats`, which is
+itself the plain version of the CUDA statistics kernel
+(ops.kernels.instance_stats).
 
 Semantics, per pixel p:
   * channel 0: exp(-min_k |p - round(c_k)|^2 / (2 sigma^2)) over the valid
@@ -30,7 +32,9 @@ def instance_stats(masks: torch.Tensor, valid: torch.Tensor | None = None):
     [..., N, 2] f32); empty or invalid instances get area 0 and centroid
     (0, 0). Per-row and per-column counts are integer sums and the moments
     run in float64, so they are exact; the JAX package sums in float32,
-    whose centroids differ from these by up to ~1e-4 px at 480x640.
+    whose centroids differ from these by up to ~1e-4 px at 480x640. The
+    plain version of the CUDA statistics kernel, which returns these values
+    bit for bit.
     """
     h, w = masks.shape[-2:]
     m = masks if valid is None else masks & valid[..., None, None]

@@ -1,12 +1,18 @@
 """Wrappers of the hand-written CUDA kernels (ops/csrc/kernels.cu).
 
 Counterpart of quber_tpu/ops/pallas_kernels.py: a single-frame and a
-batched wrapper for each of the two kernels, the batched one launching
-once for the whole batch (grid.y = B). Each wrapper takes its
-plain torch version for tensors on the CPU, and for CUDA tensors launches
-its kernel or raises: there is no fallback. Each counts its kernel
-launches in `<wrapper>.launches`, so a run can show that its path went
-through the kernels.
+batched wrapper for the encode and the group kernel, the batched one
+launching once for the whole batch, and `instance_stats`, the hand kernel
+of the encode stage's areas and centroids (XLA reductions in the JAX
+package), for a frame or a batch. The library holds a vector variant
+(16-byte loads and stores) and a scalar variant of each kernel; its launch
+functions take the vector one where the frame's width and the pointers'
+alignment allow it, so every contiguous tensor of the right type is served
+by a kernel.
+Each wrapper takes its plain torch version for tensors on the CPU, and for
+CUDA tensors launches its kernel or raises: there is no fallback. Each
+counts its kernel launches in `<wrapper>.launches`, so a run can show that
+its path went through the kernels.
 
 The kernels are built at first use from the sources in the checkout with
   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 --fmad=false
@@ -20,6 +26,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -75,6 +82,10 @@ def load_library() -> ctypes.CDLL:
     lib.quber_encode_initial_masks.restype = i
     lib.quber_group_pixels.argtypes = [p, p, p, p, i, i, i, i, p]
     lib.quber_group_pixels.restype = i
+    lib.quber_instance_stats.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
+    lib.quber_instance_stats.restype = i
+    lib.quber_empty_launch.argtypes = [p]
+    lib.quber_empty_launch.restype = i
     _lib = lib
     return lib
 
@@ -95,44 +106,106 @@ def _raise_on(err: int, what: str):
         raise RuntimeError(f"{what} kernel launch failed: cudaError {err}")
 
 
-def _launch_encode(masks, ok, centers, sigma, normalize) -> torch.Tensor:
-    """Checks and launches encode_kernel over masks [B, N, H, W] bool, ok
-    [B, N] bool, centers [B, N, 2] f32 -> [B, 3, H, W] f32."""
-    b, n, h, w = masks.shape
+def _lead(t, trailing: int, batched: bool | None) -> tuple:
+    """The leading (batch) dimensions of `t` before its last `trailing`: none
+    for a frame, one for a batch, any number where `batched` is None."""
+    n_lead = t.dim() - trailing
+    if n_lead < 0 or (batched is not None and n_lead != int(batched)):
+        raise ValueError(f"expected {'any' if batched is None else int(batched)} leading "
+                         f"dimensions before the last {trailing}, got shape {tuple(t.shape)}")
+    return tuple(t.shape[:n_lead])
+
+
+# The launch helpers hand the kernels a frame as a batch of one through the
+# same pointers, and allocate the outputs in the caller's shape: no views.
+
+def _launch_encode(masks, ok, centers, sigma, normalize, batched) -> torch.Tensor:
+    """Checks and launches encode_kernel over masks [(B,) N, H, W] bool, ok
+    [(B,) N] bool, centers [(B,) N, 2] f32 -> [(B,) 3, H, W] f32."""
+    lead = _lead(masks, 3, batched)
+    n, h, w = masks.shape[-3:]
     if n > _MAX_INSTANCES:
         raise ValueError(f"at most {_MAX_INSTANCES} instances, got {n}")
     dev = masks.device
-    _check("masks", masks, torch.bool, (b, n, h, w), dev)
-    _check("ok", ok, torch.bool, (b, n), dev)
-    _check("centers", centers, torch.float32, (b, n, 2), dev)
+    _check("masks", masks, torch.bool, (*lead, n, h, w), dev)
+    _check("ok", ok, torch.bool, (*lead, n), dev)
+    _check("centers", centers, torch.float32, (*lead, n, 2), dev)
     lib = load_library()
-    out = torch.empty((b, 3, h, w), dtype=torch.float32, device=dev)
+    out = torch.empty((*lead, 3, h, w), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.quber_encode_initial_masks(
         masks.data_ptr(), ok.data_ptr(), centers.data_ptr(), out.data_ptr(),
-        b, n, h, w, int(sigma), int(bool(normalize)), stream)
+        math.prod(lead), n, h, w, int(sigma), int(bool(normalize)), stream)
     _raise_on(err, "encode_initial_masks")
     return out
 
 
-def _launch_group(centers, valid, offsets) -> torch.Tensor:
-    """Checks and launches group_kernel over centers [B, K, 2] int32, valid
-    [B, K] bool, offsets [B, 2, H, W] f32 -> ids [B, H, W] int32."""
-    b, k = centers.shape[0], centers.shape[1]
-    h, w = offsets.shape[2], offsets.shape[3]
+def _launch_stats(masks, valid):
+    """Checks and launches stats_kernel over masks [..., N, H, W] bool, valid
+    [..., N] bool -> areas [..., N] f32, centers [..., N, 2] f32, ok [..., N]
+    bool."""
+    lead = _lead(masks, 3, None)
+    n, h, w = masks.shape[-3:]
+    if n > _MAX_INSTANCES:
+        raise ValueError(f"at most {_MAX_INSTANCES} instances, got {n}")
+    dev = masks.device
+    _check("masks", masks, torch.bool, (*lead, n, h, w), dev)
+    _check("valid", valid, torch.bool, (*lead, n), dev)
+    lib = load_library()
+    b = math.prod(lead)
+    areas = torch.empty((*lead, n), dtype=torch.float32, device=dev)
+    centers = torch.empty((*lead, n, 2), dtype=torch.float32, device=dev)
+    ok = torch.empty((*lead, n), dtype=torch.bool, device=dev)
+    # the kernel's 64-bit sums, zeroed by the launch function
+    scratch = torch.empty((b * n, 4), dtype=torch.int64, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.quber_instance_stats(
+        masks.data_ptr(), valid.data_ptr(), scratch.data_ptr(), areas.data_ptr(),
+        centers.data_ptr(), ok.data_ptr(), b, n, h, w, stream)
+    _raise_on(err, "instance_stats")
+    return areas, centers, ok
+
+
+def _launch_group(centers, valid, offsets, batched) -> torch.Tensor:
+    """Checks and launches group_kernel over centers [(B,) K, 2] int32, valid
+    [(B,) K] bool, offsets [(B,) 2, H, W] f32 -> ids [(B,) H, W] int32."""
+    lead = _lead(offsets, 3, batched)
+    h, w = offsets.shape[-2:]
+    k = centers.shape[-2] if centers.dim() >= 2 else -1
     if k > _MAX_CENTERS:
         raise ValueError(f"at most {_MAX_CENTERS} centres, got {k}")
     dev = offsets.device
-    _check("centers", centers, torch.int32, (b, k, 2), dev)
-    _check("valid", valid, torch.bool, (b, k), dev)
-    _check("offsets", offsets, torch.float32, (b, 2, h, w), dev)
+    _check("centers", centers, torch.int32, (*lead, k, 2), dev)
+    _check("valid", valid, torch.bool, (*lead, k), dev)
+    _check("offsets", offsets, torch.float32, (*lead, 2, h, w), dev)
     lib = load_library()
-    ids = torch.empty((b, h, w), dtype=torch.int32, device=dev)
+    ids = torch.empty((*lead, h, w), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.quber_group_pixels(centers.data_ptr(), valid.data_ptr(),
-                                 offsets.data_ptr(), ids.data_ptr(), b, k, h, w, stream)
+    err = lib.quber_group_pixels(centers.data_ptr(), valid.data_ptr(), offsets.data_ptr(),
+                                 ids.data_ptr(), math.prod(lead), k, h, w, stream)
     _raise_on(err, "group_pixels")
     return ids
+
+
+def instance_stats(masks: torch.Tensor, valid: torch.Tensor | None = None,
+                   return_ok: bool = False):
+    """masks [..., N, H, W] bool (a frame or a batch), valid [..., N] bool or
+    None -> (areas [..., N] f32, centers [..., N, 2] f32), and with
+    `return_ok` also ok = valid & (areas > 0), which the kernel writes in
+    the same pass. Replaces the JAX package's XLA instance_stats on the
+    card; the plain version is ops.encoding.instance_stats, whose exact
+    integer sums and float64 division the kernel repeats bit for bit."""
+    if valid is None:
+        valid = torch.ones(masks.shape[:-2], dtype=torch.bool, device=masks.device)
+    if masks.device.type == "cpu":
+        areas, centers = encoding.instance_stats(masks, valid)
+        return (areas, centers, valid & (areas > 0)) if return_ok else (areas, centers)
+    areas, centers, ok = _launch_stats(masks, valid)
+    instance_stats.launches += 1
+    return (areas, centers, ok) if return_ok else (areas, centers)
+
+
+instance_stats.launches = 0
 
 
 def encode_initial_masks(masks: torch.Tensor, ok: torch.Tensor, centers: torch.Tensor,
@@ -142,7 +215,7 @@ def encode_initial_masks(masks: torch.Tensor, ok: torch.Tensor, centers: torch.T
     version is ops.encoding.encode_from_stats."""
     if masks.device.type == "cpu":
         return encoding.encode_from_stats(masks, ok, centers, sigma, normalize)
-    out = _launch_encode(masks[None], ok[None], centers[None], sigma, normalize)[0]
+    out = _launch_encode(masks, ok, centers, sigma, normalize, batched=False)
     encode_initial_masks.launches += 1
     return out
 
@@ -157,7 +230,7 @@ def group_pixels(centers: torch.Tensor, valid: torch.Tensor,
     is ops.grouping.group_pixels."""
     if offsets.device.type == "cpu":
         return grouping.group_pixels(centers, valid, offsets)
-    ids = _launch_group(centers[None], valid[None], offsets[None])[0]
+    ids = _launch_group(centers, valid, offsets, batched=False)
     group_pixels.launches += 1
     return ids
 
@@ -174,7 +247,7 @@ def encode_initial_masks_batched(masks: torch.Tensor, ok: torch.Tensor,
     ops.encoding.encode_from_stats_batched."""
     if masks.device.type == "cpu":
         return encoding.encode_from_stats_batched(masks, ok, centers, sigma, normalize)
-    out = _launch_encode(masks, ok, centers, sigma, normalize)
+    out = _launch_encode(masks, ok, centers, sigma, normalize, batched=True)
     encode_initial_masks_batched.launches += 1
     return out
 
@@ -190,7 +263,7 @@ def group_pixels_batched(centers: torch.Tensor, valid: torch.Tensor,
     ops.grouping.group_pixels_batched."""
     if offsets.device.type == "cpu":
         return grouping.group_pixels_batched(centers, valid, offsets)
-    ids = _launch_group(centers, valid, offsets)
+    ids = _launch_group(centers, valid, offsets, batched=True)
     group_pixels_batched.launches += 1
     return ids
 
@@ -198,7 +271,16 @@ def group_pixels_batched(centers: torch.Tensor, valid: torch.Tensor,
 group_pixels_batched.launches = 0
 
 
+def empty_launch(device) -> None:
+    """Launches a kernel that does nothing on `device`'s current stream: timed
+    like a kernel, it gives the floor of the measurement."""
+    dev = torch.device(device)
+    _raise_on(load_library().quber_empty_launch(torch.cuda.current_stream(dev).cuda_stream),
+              "empty")
+
+
 def reset_launch_counts() -> None:
+    instance_stats.launches = 0
     encode_initial_masks.launches = 0
     group_pixels.launches = 0
     encode_initial_masks_batched.launches = 0

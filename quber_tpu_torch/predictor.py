@@ -47,7 +47,6 @@ from quber_tpu_torch.data.mappers import bucket_shape, resize, resize_shortest_e
 from quber_tpu_torch.models.from_jax import state_dict_from_jax
 from quber_tpu_torch.models.mask_refiner import MaskRefiner, MaskRefinerConfig
 from quber_tpu_torch.ops import kernels
-from quber_tpu_torch.ops.encoding import instance_stats
 from quber_tpu_torch.ops.grouping import find_instance_centers_batched, merge_and_score
 
 _END = object()
@@ -118,10 +117,9 @@ class MaskRefinerPredictor:
         self.model = model.to(self.device).eval()
 
     def _encode(self, masks, valid):
-        """Initial-mask encoding: stats as plain torch, then the kernel."""
-        areas, centers = instance_stats(masks, valid)
-        return kernels.encode_initial_masks(masks, valid & (areas > 0), centers,
-                                            sigma=10, normalize=True)
+        """Initial-mask encoding: the statistics kernel, then the encode kernel."""
+        _, centers, ok = kernels.instance_stats(masks, valid, return_ok=True)
+        return kernels.encode_initial_masks(masks, ok, centers, sigma=10, normalize=True)
 
     def _heads(self, out):
         """Model outputs [B, ...] -> the batch's pre-grouping dict: foreground
@@ -153,10 +151,11 @@ class MaskRefinerPredictor:
         return {k: v[0] for k, v in pre.items()}
 
     def _pre_batch(self, images, masks, valids):
-        """Batched pre stages (reference :946-967): one encode launch for the
-        batch, one forward over images [B, 6, H, W], batched centre NMS."""
-        areas, centers = instance_stats(masks, valids)
-        enc = kernels.encode_initial_masks_batched(masks, valids & (areas > 0), centers,
+        """Batched pre stages (reference :946-967): one statistics and one
+        encode launch for the batch, one forward over images [B, 6, H, W],
+        batched centre NMS."""
+        _, centers, ok = kernels.instance_stats(masks, valids, return_ok=True)
+        enc = kernels.encode_initial_masks_batched(masks, ok, centers,
                                                    sigma=10, normalize=True)
         return self._heads(self.model(images, enc))
 

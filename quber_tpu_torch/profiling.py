@@ -5,8 +5,9 @@
 Serves 8 seeded synthetic 480x640 frames through the port's predictor with
 the in-repo int8 flagship weights, then reports:
   * per-stage device time with CUDA events around the predictor's stages
-    (encode, forward, centre NMS, group + merge) and the host-side rest of
-    predict() (uploads, readback, instance extraction);
+    (encode, forward, centre NMS, group + merge), the host time it takes to
+    enqueue the encode stage, and the host-side rest of predict() (uploads,
+    readback, instance extraction);
   * a torch.profiler trace of a few frames: the device-busy share of the
     wall time and the top kernels by device time (key_averages), written
     with the Chrome trace under --out;
@@ -56,15 +57,16 @@ def _batch_stage_times(pred, tensors):
     """Device ms of each stage of one staged batch (CUDA events); the
     stages of MaskRefinerPredictor._dispatch, spelled out."""
     from quber_tpu_torch.ops import kernels
-    from quber_tpu_torch.ops.encoding import instance_stats
     from quber_tpu_torch.predictor import _images
 
     img4, masks, valid = tensors
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
     with torch.inference_mode():
         ev[0].record()
-        areas, centers = instance_stats(masks, valid)
-        enc = kernels.encode_initial_masks_batched(masks, valid & (areas > 0), centers)
+        t0 = time.perf_counter()
+        _, centers, ok = kernels.instance_stats(masks, valid, return_ok=True)
+        enc = kernels.encode_initial_masks_batched(masks, ok, centers)
+        enqueue_ms = (time.perf_counter() - t0) * 1e3
         ev[1].record()
         out = pred.model(_images(img4), enc)
         ev[2].record()
@@ -73,8 +75,10 @@ def _batch_stage_times(pred, tensors):
         pred._group_and_post_batch(pre)
         ev[4].record()
     torch.cuda.synchronize()
-    return {n: ev[i].elapsed_time(ev[i + 1]) for i, n in enumerate(
+    stages = {n: ev[i].elapsed_time(ev[i + 1]) for i, n in enumerate(
         ("encode", "forward", "heads_and_centre_nms", "group_and_merge"))}
+    stages["encode_enqueue_host"] = enqueue_ms
+    return stages
 
 
 def _batched_report(pred, h, w, forward_flop, out_dir):
@@ -118,7 +122,9 @@ def _stage_times(pred, frame):
         m = torch.from_numpy(np.asarray(masks, bool)).to(dev)
         valid = torch.ones((m.shape[0],), dtype=torch.bool, device=dev)
         ev[0].record()
+        t0 = time.perf_counter()
         enc = pred._encode(m, valid)
+        enqueue_ms = (time.perf_counter() - t0) * 1e3
         ev[1].record()
         out = pred.model(image.permute(2, 0, 1)[None], enc[None])
         ev[2].record()
@@ -132,6 +138,9 @@ def _stage_times(pred, frame):
     torch.cuda.synchronize()
     stages = {n: ev[i].elapsed_time(ev[i + 1]) for i, n in
               ((0, "encode"), (1, "forward"), (2, "centre_nms"), (4, "group_and_merge"))}
+    # host time to enqueue the encode stage: with an idle device ahead of it,
+    # the stage's device time cannot be shorter
+    stages["encode_enqueue_host"] = enqueue_ms
     t0 = time.perf_counter()
     pred.predict(rgb, depth, list(masks))
     torch.cuda.synchronize()

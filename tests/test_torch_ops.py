@@ -5,7 +5,8 @@ kernels in interpret mode, as tests/test_pallas_kernels.py runs them.
 Tolerances: heatmap atol 1e-6 (exp and division rounding), offsets atol
 1e-5 (float32 centroid sums in JAX, exact sums in the port), centroids
 atol 1e-4 px; grouping ids, NMS and instance counts exact; scores rtol
-1e-5.
+1e-5. The wrappers of the CUDA kernels (ops.kernels) run their plain
+versions here, and equal them exactly.
 """
 
 import numpy as np
@@ -290,3 +291,92 @@ def test_find_instance_centers_batched_matches_jax(rng, blobs, top_k):
         np.testing.assert_array_equal(tv[b].numpy(), np.asarray(jv))
         np.testing.assert_array_equal(tc[b].numpy(), np.asarray(jc))
     assert not tv[2].any()
+
+
+# --- the shapes the CUDA kernels treat specially (vector against scalar
+# variants, owner tags above a byte, tables of one entry): the semantics the
+# kernels are held to on the card, pinned here against the JAX package ---
+
+def _special_mask_case(name, rng, blobs):
+    if name == "hw_not_multiple_of_16":  # 37 * 45 = 1665: no 16-byte rows
+        masks = blobs(rng, 5, 37, 45, min_r=4, max_r=9) > 0
+        masks[3] |= masks[2]
+        return masks, np.array([True, True, False, True, True])
+    if name == "more_than_255_ok":  # owners above 255 do not fit a byte lane
+        h, w, n = 40, 48, 300
+        masks = np.zeros((n, h, w), bool)
+        for i in range(n):
+            y, x = rng.randint(0, h - 6), rng.randint(0, w - 6)
+            masks[i, y:y + rng.randint(2, 7), x:x + rng.randint(2, 7)] = True
+        valid = np.ones(n, bool)
+        valid[::17] = False
+        return masks, valid
+    if name == "single_instance":
+        return blobs(rng, 1, 48, 64, min_r=6, max_r=12) > 0, np.ones(1, bool)
+    assert name == "all_invalid"
+    return blobs(rng, 4, 48, 64, min_r=6, max_r=12) > 0, np.zeros(4, bool)
+
+
+@pytest.mark.parametrize("name", ["hw_not_multiple_of_16", "more_than_255_ok",
+                                  "single_instance", "all_invalid"])
+def test_stats_and_encode_special_shapes_match_jax(rng, blobs, name):
+    masks, valid = _special_mask_case(name, rng, blobs)
+    ja, jc = JE.instance_stats(jnp.asarray(masks), jnp.asarray(valid))
+    areas, centers, ok = TK.instance_stats(_t(masks), _t(valid), return_ok=True)
+    np.testing.assert_array_equal(areas.numpy(), np.asarray(ja))
+    np.testing.assert_allclose(centers.numpy(), np.asarray(jc), atol=1e-4)
+    np.testing.assert_array_equal(ok.numpy(), valid & (np.asarray(ja) > 0))
+    if name == "more_than_255_ok":
+        assert int(ok.sum()) > 255
+    xla = np.asarray(JE.encode_initial_masks(jnp.asarray(masks), jnp.asarray(valid), sigma=10))
+    pallas = np.asarray(encode_initial_masks_pallas(
+        jnp.asarray(masks), jnp.asarray(valid) & (ja > 0), jc, sigma=10, interpret=True))
+    got = TK.encode_initial_masks(_t(masks), ok, centers).numpy()
+    for ref in (xla, pallas):
+        np.testing.assert_allclose(got[0], ref[0], atol=1e-6, rtol=0)
+        np.testing.assert_allclose(got[1:], ref[1:], atol=1e-5, rtol=0)
+    if name == "all_invalid":
+        np.testing.assert_array_equal(got, 0.0)
+
+
+def _special_group_case(name, rng):
+    h, w = 33, 47
+    k = {"k1": 1, "k33": 33, "last_valid": 64}[name]
+    centers = np.stack([rng.randint(0, h, k), rng.randint(0, w, k)], -1).astype(np.int32)
+    valid = np.ones(k, bool)
+    if name == "k33":
+        valid[1::3] = False
+    if name == "last_valid":  # the only valid centre at the last index
+        valid[:-1] = False
+    return centers, valid, (rng.randn(2, h, w) * 5).astype(np.float32)
+
+
+@pytest.mark.parametrize("name", ["k1", "k33", "last_valid"])
+def test_group_pixels_special_tables_match_jax(rng, name):
+    centers, valid, offsets = _special_group_case(name, rng)
+    jc, jv, jo = jnp.asarray(centers), jnp.asarray(valid), jnp.asarray(offsets)
+    got = TK.group_pixels(_t(centers), _t(valid), _t(offsets)).numpy()
+    np.testing.assert_array_equal(got, np.asarray(JG.group_pixels(jc, jv, jo)))
+    np.testing.assert_array_equal(
+        got, np.asarray(group_pixels_pallas(jc, jv, jo, interpret=True)))
+    if name == "last_valid":
+        assert (got == 64).all()
+    if name == "k1":
+        assert (got == 1).all()
+
+
+@pytest.mark.parametrize("batched", [False, True])
+def test_stats_wrapper_takes_plain_version_on_cpu(rng, blobs, batched):
+    masks, valid = _batched_mask_case(rng, blobs, 37, 45)
+    if not batched:
+        masks, valid = masks[0], valid[0]
+    before = TK.instance_stats.launches
+    areas, centers, ok = TK.instance_stats(_t(masks), _t(valid), return_ok=True)
+    assert TK.instance_stats.launches == before  # the CPU runs no kernel
+    want_areas, want_centers = TE.instance_stats(_t(masks), _t(valid))
+    assert torch.equal(areas, want_areas) and torch.equal(centers, want_centers)
+    assert torch.equal(ok, _t(valid) & (want_areas > 0))
+    two = TK.instance_stats(_t(masks), _t(valid))
+    assert len(two) == 2 and torch.equal(two[0], want_areas)
+    no_valid = TK.instance_stats(_t(masks))  # valid=None: every slot counts
+    assert torch.equal(no_valid[0], TE.instance_stats(_t(masks))[0])
