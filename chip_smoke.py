@@ -43,7 +43,27 @@ Phases (any failure ends the run with a non-zero exit code):
      the compute stream idle;
   9. refine one 360x480 frame through MultiScalePredictor (480x640 bucket):
      finite outputs of the input's size, all three kernels launched;
- 10. print a JSON line of the kernels' numbers, the frame time, and as the
+ 10. training targets on the card: pack 8 seeded rendered scenes at 480x640
+     with 32 instance slots, build_targets on the card and on the CPU (plain
+     versions): sem_seg, the weights, eee_mask and eee_boundary exact,
+     center, offset and offset_enc within 1e-5; the batched statistics kernel
+     launched twice and the batched encode kernel once, no single-frame
+     launch; both kernels timed against floor and bound at this shape;
+ 11. train steps at full width: the flagship config at 480x640, batch 8,
+     from the int8 weights, a device pool of 16 scenes, 12 device-target
+     steps: every loss finite at every step, FrozenBN tensors bit-equal
+     before and after, every trainable tensor changed, the loss over the
+     whole pool (eval mode) lower after the steps than before, two
+     statistics launches and one encode launch a step; per-step ms (median
+     of steps 3-12), the breakdown and the peak device memory;
+ 12. card against CPU: one step at batch 2, 128x160, full depth, dropout 0,
+     from the same state: each loss within rtol 1e-3, the gradient of every
+     trainable tensor with cosine similarity >= 0.999 (but the conv biases
+     ahead of a batch-statistics BatchNorm: their gradient is exactly zero,
+     and must come back as noise below 1e-3 of their weight's);
+ 13. checkpoint: save_state after step 12, restore_state into a fresh state,
+     step 13 from both gives the same losses within rtol 1e-6;
+ 14. print a JSON line of the kernels' numbers, the frame time, and as the
      last line {"ok": true, "device": {...}}.
 Needs CUDA; it has no CPU mode.
 """
@@ -51,9 +71,11 @@ Needs CUDA; it has no CPU mode.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -67,6 +89,16 @@ N_SERVE = 20
 ENCODE_ATOL = 1e-6
 PANOPTIC_AGREEMENT = 0.995
 SCORES_RTOL = 1e-6
+TRAIN_SLOTS = 32
+TRAIN_POOL = 16
+TRAIN_STEPS = 12
+TARGET_ATOL = 1e-5
+CPU_LOSS_RTOL = 1e-3
+GRAD_COSINE = 0.999
+# a gradient that is exactly zero comes back as float noise: its norm stays
+# below this share of the norm of its conv weight's gradient
+ZERO_GRAD_SHARE = 1e-3
+CHECKPOINT_RTOL = 1e-6
 # H100 SXM data sheet: HBM3 rate and fp32 rate outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
@@ -606,6 +638,254 @@ def multiscale(params):
             raise AssertionError(f"MultiScalePredictor did not launch {name}")
 
 
+def _train_launch_counts(path, launches, steps):
+    print(f"{path}: launches {launches}")
+    if launches["instance_stats"] != 2 * steps or \
+            launches["encode_initial_masks_batched"] != steps:
+        raise AssertionError(f"{path}: expected two statistics launches and one batched "
+                             f"encode launch a step over {steps} steps")
+    for name in ("encode_initial_masks", "group_pixels", "group_pixels_batched"):
+        if launches[name]:
+            raise AssertionError(f"{path}: {name} was launched")
+
+
+def check_targets(packed, model_cfg, train_cfg, dev, flush):
+    """Phase 10: build_targets on the card against the CPU, and the two
+    kernels' times at the training shape."""
+    from quber_tpu_torch.ops import encoding, kernels
+    from quber_tpu_torch.train.device_targets import build_targets, unpack_train_sample
+
+    bufs = torch.from_numpy(packed[:BATCH])
+    _, gt, gv, pert, pv = unpack_train_sample(bufs.to(dev), H, W, TRAIN_SLOTS)
+    kernels.reset_launch_counts()
+    got = build_targets(gt, gv, pert, pv, model_cfg, train_cfg)
+    torch.cuda.synchronize()
+    _train_launch_counts("build_targets on the card", _launch_counts(), 1)
+    _, *stacks_cpu = unpack_train_sample(bufs, H, W, TRAIN_SLOTS)
+    want = build_targets(*stacks_cpu, model_cfg, train_cfg)
+    errs = {}
+    for key, tol in (("sem_seg", 0), ("sem_seg_weights", 0), ("center_weights", 0),
+                     ("offset_weights", 0), ("eee_mask", 0), ("eee_boundary", 0),
+                     ("center", TARGET_ATOL), ("offset", TARGET_ATOL),
+                     ("offset_enc", TARGET_ATOL)):
+        g, w = got[key].cpu(), want[key]
+        errs[key] = float((g - w).abs().max())
+        if g.shape != w.shape or not errs[key] <= tol:
+            raise AssertionError(f"build_targets: {key} differs between card and CPU by "
+                                 f"{errs[key]} (tolerance {tol})")
+    print(f"build_targets B={BATCH} N={TRAIN_SLOTS} {H}x{W}, valid GT per scene "
+          f"{gv.sum(dim=1).tolist()}, perturbed {pv.sum(dim=1).tolist()}: max |card - cpu| {errs} "
+          f"(tolerance 0, and {TARGET_ATOL} for center, offset, offset_enc)")
+
+    hw = H * W
+    _, centers, ok = kernels.instance_stats(pert, pv, return_ok=True)
+    n_ok = int(ok.sum())
+    bound_ms, bound_by = _bound(n_ok * hw + BATCH * TRAIN_SLOTS * 9 + BATCH * 3 * hw * 4,
+                                hw * n_ok * 8 + BATCH * hw * 20)
+    encode_train = {
+        "shape": f"masks [{BATCH},{TRAIN_SLOTS},{H},{W}] bool, {n_ok} ok, normalize",
+        "launches_per_step": 1,
+        "ms": _time_ms(lambda: kernels.encode_initial_masks_batched(pert, ok, centers), flush),
+        "plain_ms": _time_ms(lambda: encoding.encode_from_stats_batched(pert, ok, centers),
+                             flush),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+    }
+    stats_train = {"launches_per_step": 2, "gt": _stats_case(gt, gv, flush),
+                   "perturbed": _stats_case(pert, pv, flush)}
+    return encode_train, stats_train
+
+
+def _pool_loss(state, packed, model_cfg, train_cfg, dev):
+    """Mean total loss over the whole pool in eval mode (no dropout, running
+    BatchNorm statistics), batch by batch."""
+    from quber_tpu_torch.models.mask_refiner import compute_losses
+    from quber_tpu_torch.train.device_targets import build_targets, unpack_train_sample
+
+    state.model.eval()
+    totals = []
+    with torch.no_grad():
+        for i in range(0, len(packed), BATCH):
+            bufs = torch.from_numpy(packed[i:i + BATCH]).to(dev)
+            image, *stacks = unpack_train_sample(bufs, H, W, TRAIN_SLOTS)
+            batch = build_targets(*stacks, model_cfg, train_cfg)
+            out = state.model(image, batch["offset_enc"], full_res=False)
+            totals.append(float(sum(compute_losses(out, batch, model_cfg).values())))
+    return statistics.mean(totals)
+
+
+def train_full_width(params, packed, model_cfg, train_cfg, dev, card):
+    """Phase 11: the flagship train step at full width on a device pool."""
+    from quber_tpu_torch.models.from_jax import state_dict_from_jax
+    from quber_tpu_torch.models.layers import FrozenBatchNorm
+    from quber_tpu_torch.ops import kernels
+    from quber_tpu_torch.profiling import TRAIN_PHASES, timed_train_steps
+    from quber_tpu_torch.train.device_targets import DevicePool, make_device_target_step
+    from quber_tpu_torch.train.loop import create_train_state
+
+    state = create_train_state(model_cfg, train_cfg, device=dev)
+    state.model.load_state_dict(state_dict_from_jax(params), strict=True)
+    before = {k: v.clone() for k, v in state.model.state_dict().items()}
+    frozen = {f"{name}.{leaf}" for name, mod in state.model.named_modules()
+              if isinstance(mod, FrozenBatchNorm) for leaf, _ in mod.named_buffers()}
+    trainable = {name for name, p in state.model.named_parameters() if p.requires_grad}
+    if not frozen or len(frozen) + len(trainable) + 32 != len(before):
+        raise AssertionError("the state is not FrozenBN tensors + trainable parameters + "
+                             "32 BatchNorm statistics")
+    loss_before = _pool_loss(state, packed, model_cfg, train_cfg, dev)
+
+    pool = DevicePool(packed, BATCH, train_cfg.seed, dev)
+    train_step = make_device_target_step(model_cfg, train_cfg, TRAIN_SLOTS)
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    rows = timed_train_steps(state, train_step, pool.next_batch, TRAIN_STEPS)
+    launches = _launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    _train_launch_counts(f"{TRAIN_STEPS} train steps", launches, TRAIN_STEPS)
+    for i, row in enumerate(rows):
+        print(f"train step {i + 1}: {row['ms']:.3f} ms, "
+              + " ".join(f"{k}={v:.6f}" for k, v in sorted(row["losses"].items())))
+        if not all(np.isfinite(v) for v in row["losses"].values()):
+            raise AssertionError(f"train step {i + 1}: a loss is not finite")
+
+    after = state.model.state_dict()
+    for name in frozen:
+        if not torch.equal(before[name], after[name]):
+            raise AssertionError(f"FrozenBN tensor {name} changed")
+    unchanged = [n for n in trainable if torch.equal(before[n], after[n])]
+    if unchanged:
+        raise AssertionError(f"{len(unchanged)} trainable tensors did not change: "
+                             f"{unchanged[:5]}")
+    loss_after = _pool_loss(state, packed, model_cfg, train_cfg, dev)
+    print(f"{len(frozen)} FrozenBN tensors bit-equal, {len(trainable)} trainable tensors all "
+          f"changed; mean total loss over the pool of {len(packed)} scenes (eval mode) "
+          f"{loss_before:.6f} before -> {loss_after:.6f} after {TRAIN_STEPS} steps")
+    if not loss_after < loss_before:
+        raise AssertionError("the loss over the pool did not fall")
+
+    steady = rows[2:]
+    step_ms = statistics.median(r["ms"] for r in steady)
+    phases = {p: statistics.median(r["phases"][p] for r in steady) for p in TRAIN_PHASES}
+    print(f"train step at {H}x{W}, batch {BATCH}, {TRAIN_SLOTS} slots, flagship config, float32, "
+          f"remat_backbone={model_cfg.remat_backbone}: median {step_ms:.3f} ms/step over steps "
+          f"3-{TRAIN_STEPS} ({BATCH * 1e3 / step_ms:.3f} frames/s), first step "
+          f"{rows[0]['ms']:.1f} ms, device ms by phase "
+          f"{ {k: round(v, 3) for k, v in phases.items()} }, peak device memory "
+          f"{peak / 2**30:.3f} GiB ({peak} bytes) on {card}")
+    return state, train_step, pool, launches
+
+
+def card_against_cpu(params, dev):
+    """Phase 12: one train step from the same state on the card and the CPU."""
+    import dataclasses
+
+    from quber_tpu_torch.config import TrainConfig
+    from quber_tpu_torch.models.from_jax import state_dict_from_jax
+    from quber_tpu_torch.models.layers import BatchNorm, ConvNorm
+    from quber_tpu_torch.models.mask_refiner import MaskRefinerConfig
+    from quber_tpu_torch.profiling import packed_scene_pool
+    from quber_tpu_torch.train.device_targets import make_device_target_step
+    from quber_tpu_torch.train.loop import create_train_state
+
+    model_cfg = dataclasses.replace(MaskRefinerConfig(), height=128, width=160, aspp_dropout=0.0)
+    train_cfg = TrainConfig(batch_size=2, warmup_iters=2)
+    packed = torch.from_numpy(packed_scene_pool(model_cfg, train_cfg, 2, TRAIN_SLOTS, seed=21))
+    sd = state_dict_from_jax(params)
+    results = {}
+    for device in (dev, torch.device("cpu")):
+        state = create_train_state(model_cfg, train_cfg, device=device)
+        state.model.load_state_dict(sd, strict=True)
+        step = make_device_target_step(model_cfg, train_cfg, TRAIN_SLOTS)
+        _, metrics = step(state, packed.to(device))
+        grads = {n: p.grad.detach().cpu().double()
+                 for n, p in state.model.named_parameters() if p.requires_grad}
+        results[device.type] = ({k: float(v) for k, v in metrics.items()}, grads)
+    (loss_gpu, grad_gpu), (loss_cpu, grad_cpu) = results["cuda"], results["cpu"]
+    for k, v in loss_cpu.items():
+        if not abs(loss_gpu[k] - v) <= CPU_LOSS_RTOL * abs(v):
+            raise AssertionError(f"card against CPU: {k} {loss_gpu[k]} on the card, {v} on the CPU")
+    # a conv bias ahead of a BatchNorm that normalises with the batch's
+    # statistics has an exactly zero gradient: what autograd returns for it is
+    # float noise, with no direction to compare
+    zero_grad = {f"{name}.conv.bias" for name, mod in state.model.named_modules()
+                 if isinstance(mod, ConvNorm) and isinstance(mod.norm, BatchNorm)
+                 and mod.conv.bias is not None}
+    worst, largest_zero = (1.0, None), 0.0
+    for name, g in grad_cpu.items():
+        if name in zero_grad:
+            weight = name[:-len("bias")] + "weight"
+            largest_zero = max(largest_zero, float(g.norm() / grad_cpu[weight].norm()),
+                               float(grad_gpu[name].norm() / grad_gpu[weight].norm()))
+            continue
+        cos = float(torch.nn.functional.cosine_similarity(g.flatten(), grad_gpu[name].flatten(),
+                                                          dim=0))
+        worst = min(worst, (cos, name))
+    print(f"card against CPU, one step at batch 2, 128x160, full depth: losses card {loss_gpu} "
+          f"cpu {loss_cpu} (rtol {CPU_LOSS_RTOL}); gradient cosine of "
+          f"{len(grad_cpu) - len(zero_grad)} trainable tensors min {worst[0]:.6f} at {worst[1]} "
+          f"(need >= {GRAD_COSINE}); {len(zero_grad)} biases ahead of a batch-statistics "
+          f"BatchNorm have a zero gradient: largest norm {largest_zero:.3g} of their conv "
+          f"weight's (need < {ZERO_GRAD_SHARE})")
+    if worst[0] < GRAD_COSINE:
+        raise AssertionError("card and CPU disagree on a gradient")
+    if not zero_grad <= set(grad_cpu) or not largest_zero < ZERO_GRAD_SHARE:
+        raise AssertionError("a bias ahead of a batch-statistics BatchNorm has a gradient")
+
+
+def checkpoint_roundtrip(state, train_step, bufs, model_cfg, train_cfg, dev):
+    """Phase 13: a restored checkpoint takes the same next step."""
+    from quber_tpu_torch.train.checkpoint import restore_state, save_state
+    from quber_tpu_torch.train.loop import create_train_state
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "ckpt")
+        save_state(ckpt, state)
+        size = sum(os.path.getsize(os.path.join(r, f)) for r, _, fs in os.walk(ckpt) for f in fs)
+        fresh = create_train_state(model_cfg, train_cfg, device=dev)
+        if restore_state(ckpt, fresh) is None:
+            raise AssertionError("restore_state found no finished checkpoint")
+    if fresh.step != state.step:
+        raise AssertionError(f"restored step {fresh.step}, saved {state.step}")
+    _, want = train_step(state, bufs)
+    _, got = train_step(fresh, bufs)
+    want = {k: float(v) for k, v in want.items()}
+    got = {k: float(v) for k, v in got.items()}
+    print(f"checkpoint of step {fresh.step - 1} ({size} bytes): step {fresh.step} losses from "
+          f"the live state {want}, from the restored one {got} (rtol {CHECKPOINT_RTOL})")
+    for k, v in want.items():
+        if not abs(got[k] - v) <= CHECKPOINT_RTOL * abs(v):
+            raise AssertionError(f"checkpoint: {k} differs after restore")
+
+
+def train_phases(params, rows, floor_ms, dev, card):
+    """Phases 10-13; adds the training-shape numbers to the kernels' rows."""
+    from quber_tpu_torch.config import TrainConfig
+    from quber_tpu_torch.models.mask_refiner import MaskRefinerConfig
+    from quber_tpu_torch.profiling import packed_scene_pool
+
+    model_cfg = MaskRefinerConfig()
+    # a warm-up of two steps: the rate is the base rate from the third step on
+    train_cfg = TrainConfig(batch_size=BATCH, warmup_iters=2)
+    t0 = time.perf_counter()
+    packed = packed_scene_pool(model_cfg, train_cfg, TRAIN_POOL, TRAIN_SLOTS, seed=11)
+    print(f"{TRAIN_POOL} scenes rendered, perturbed and packed on the host in "
+          f"{time.perf_counter() - t0:.1f} s ({packed.shape[1]} bytes a scene)")
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    encode_train, stats_train = check_targets(packed, model_cfg, train_cfg, dev, flush)
+    del flush
+    state, train_step, pool, launches = train_full_width(params, packed, model_cfg, train_cfg,
+                                                         dev, card)
+    by_name = {row["name"]: row for row in rows}
+    encode_train["launches"] = launches["encode_initial_masks_batched"]
+    stats_train["launches"] = launches["instance_stats"]
+    encode_train["floor_ms"] = stats_train["floor_ms"] = floor_ms
+    by_name["encode_initial_masks_batched"]["train"] = encode_train
+    by_name["instance_stats"]["train"] = stats_train
+    checkpoint_roundtrip(state, train_step, pool.next_batch(), model_cfg, train_cfg, dev)
+    del state, pool
+    torch.cuda.empty_cache()
+    card_against_cpu(params, dev)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -657,6 +937,7 @@ def main() -> int:
     for row in rows:
         row["floor_ms"] = floor_ms
     multiscale(params)
+    train_phases(params, rows, floor_ms, dev, card)
 
     steady = times[1:]
     med = statistics.median(steady)

@@ -9,5 +9,8 @@ Ported so far: refinement inference, `predictor.MaskRefinerPredictor`
 (single-frame `predict`, batched `predict_batch`, staged and streamed
 serving) and `predictor.MultiScalePredictor`, with the encode and group
 kernels and their batched launches hand-written in CUDA for sm_90a
-(`ops/csrc/kernels.cu`).
+(`ops/csrc/kernels.cu`); and training on rendered synthetic scenes (`train/`:
+losses, device-side targets through the same kernels, Adam + WarmupPolyLR,
+checkpoints), driven by `train_net_torch.py`. The training tensors (batch,
+targets, losses) are channels first.
 """

@@ -1,7 +1,11 @@
-"""Test-time resize helpers of the multi-scale predictor (torch).
+"""Host-side mapper helpers: depth normalisation, the endless batch
+iterator of the trainer, and the test-time resize helpers of the
+multi-scale predictor.
 
-`resize_shortest_edge` and `bucket_shape` are copies of
-quber_tpu/data/mappers.py:88-105. `resize` takes the place of the
+`normalize_depth_mm`, `batch_iterator`, `resize_shortest_edge` and
+`bucket_shape` are copies of quber_tpu/data/mappers.py (the iterator takes
+in-memory records only: named datasets on disk wait for the file-backed
+data slice). `resize` takes the place of the
 reference's `cv2.resize(img.astype(np.float32), (w, h), interpolation)`,
 which the port cannot use (OpenCV is not a dependency): "linear" is
 bilinear with half-pixel centres (align_corners=False, no antialiasing),
@@ -16,6 +20,33 @@ import torch
 import torch.nn.functional as F
 
 _MODES = {"linear": "bilinear", "nearest": "nearest"}
+
+
+def normalize_depth_mm(depth_mm: np.ndarray, depth_range=(2500, 15000)) -> np.ndarray:
+    """mm -> 0..255 replicated to 3 channels, under the training depth range."""
+    lo, hi = depth_range
+    d = np.clip(depth_mm.astype(np.float32), lo, hi)
+    d = (d - lo) / (hi - lo) * 255.0
+    return np.repeat(d[..., None], 3, axis=-1)
+
+
+def batch_iterator(records, mapper, batch_size: int, shuffle=True, seed=0):
+    """Endless iterator of stacked batches of mapper(record) dicts; samples
+    are grouped by the shapes of their arrays, so each batch stacks."""
+    rng = np.random.RandomState(seed)
+    order = np.arange(len(records))
+    pending: dict = {}
+    while True:
+        if shuffle:
+            rng.shuffle(order)
+        for i in order:
+            s = mapper(records[i])
+            key = tuple((k, np.shape(v)) for k, v in sorted(s.items()))
+            batch = pending.setdefault(key, [])
+            batch.append(s)
+            if len(batch) == batch_size:
+                yield {k: np.stack([x[k] for x in batch]) for k in batch[0]}
+                pending[key] = []
 
 
 def resize_shortest_edge(h0: int, w0: int, short: int, max_size: int):

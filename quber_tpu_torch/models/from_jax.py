@@ -6,12 +6,18 @@ The port's modules are named after the flax scopes, so the map is a rename:
     with `scale` -> `weight`, `frozen_weight` / `frozen_bias` -> `weight` /
     `bias` and `frozen_mean` / `frozen_var` -> `running_mean` / `running_var`;
   * `batch_stats/.../BatchNorm_0/{mean,var}` -> `norm.running_{mean,var}`.
+`state_dict_to_jax` is the inverse (it reads the norm scopes off the module
+types), and `load_optax_adam_state` carries Adam moments kept in the flax
+layout into a torch optimizer.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch import nn
+
+from quber_tpu_torch.models.layers import BatchNorm, FrozenBatchNorm
 
 _NORM_SCOPES = {"GroupNorm_0", "BatchNorm_0", "FrozenBatchNorm_0"}
 
@@ -60,3 +66,57 @@ def state_dict_from_jax(tree: dict) -> dict:
             raise KeyError(f"two flax leaves map onto {name}")
         out[name] = torch.from_numpy(arr)
     return out
+
+
+_TO_JAX = {
+    nn.GroupNorm: ("GroupNorm_0", {"weight": "scale", "bias": "bias"}),
+    BatchNorm: ("BatchNorm_0", {"weight": "scale", "bias": "bias",
+                                "running_mean": "mean", "running_var": "var"}),
+    FrozenBatchNorm: ("FrozenBatchNorm_0", {
+        "weight": "frozen_weight", "bias": "frozen_bias",
+        "running_mean": "frozen_mean", "running_var": "frozen_var"}),
+}
+
+
+def state_dict_to_jax(model: nn.Module) -> dict:
+    """The module's state as the nested flax variable tree {"params": ...,
+    "batch_stats": ...} of float32 numpy arrays, conv kernels OIHW -> HWIO:
+    what the JAX package's predictor and int8 archive take."""
+    tree: dict = {"params": {}}
+    for name, tensor in model.state_dict().items():
+        *scopes, leaf = name.split(".")
+        arr = tensor.detach().cpu().numpy().astype(np.float32)
+        collection = "params"
+        parent = model.get_submodule(".".join(scopes))
+        if type(parent) in _TO_JAX:
+            scope, leaves = _TO_JAX[type(parent)]
+            if isinstance(parent, BatchNorm) and leaf.startswith("running_"):
+                collection = "batch_stats"
+            scopes, leaf = scopes[:-1] + [scope], leaves[leaf]
+        elif leaf == "weight":
+            leaf = "kernel"
+            if arr.ndim == 4:
+                arr = np.ascontiguousarray(arr.transpose(2, 3, 1, 0))
+        d = tree.setdefault(collection, {})
+        for s in scopes:
+            d = d.setdefault(s, {})
+        d[leaf] = arr
+    return tree
+
+
+def load_optax_adam_state(optimizer: torch.optim.Adam, model: nn.Module, mu: dict, nu: dict,
+                          count: int) -> None:
+    """Give a torch Adam the moments of an optax Adam: `mu` and `nu` are flax
+    `params`-shaped trees of numpy arrays holding (at least) the trainable
+    leaves, `count` the number of updates taken."""
+    first = state_dict_from_jax({"params": mu})
+    second = state_dict_from_jax({"params": nu})
+    names = {p: n for n, p in model.named_parameters()}
+    for group in optimizer.param_groups:
+        for p in group["params"]:
+            name = names[p]
+            optimizer.state[p] = {
+                "step": torch.tensor(float(count)),
+                "exp_avg": first[name].to(p.device),
+                "exp_avg_sq": second[name].to(p.device),
+            }

@@ -7,7 +7,8 @@ Port of quber_tpu/models/heads.py (torch, NCHW):
     offset): two 3x3 conv + GN + ReLU, then a 1x1 predictor;
   * hierarchical fusion: each level concatenates [decoder feature, previous
     level's head features, previous level's softmax/sigmoid predictions]
-    and runs FusionLayers, whose norm is BatchNorm (inference mode).
+    and runs FusionLayers, whose norm is BatchNorm (batch statistics in
+    training mode, running statistics in eval mode).
 """
 
 from __future__ import annotations
@@ -87,7 +88,8 @@ class DeepLabV3PlusDecoder(nn.Module):
                  aspp_channels: int = 256,
                  aspp_dilations: Sequence[int] = (6, 12, 18),
                  convs_dim: int = 128, norm: str = "GN",
-                 use_depthwise_separable_conv: bool = False):
+                 use_depthwise_separable_conv: bool = False,
+                 aspp_dropout: float = 0.1):
         super().__init__()
         use_bias = norm == ""
         self.names = list(in_features)
@@ -99,7 +101,7 @@ class DeepLabV3PlusDecoder(nn.Module):
             f = self.names[idx]
             if idx == n - 1:
                 self.add_module(f"aspp_{f}", ASPP(in_channels[f], aspp_channels,
-                                                  aspp_dilations, norm))
+                                                  aspp_dilations, norm, aspp_dropout))
             else:
                 self.add_module(f"project_{f}", ConvNorm(
                     in_channels[f], project_channels[idx], 1, use_bias=use_bias,
@@ -158,11 +160,13 @@ class InsEmbedHead(nn.Module):
                      ("center",), ("offset",)),
                  num_fusion_layers: int = 3,
                  fusion_target: Sequence[str] = ("feat", "pred"),
-                 head_depthwise_separable: bool = False):
+                 head_depthwise_separable: bool = False,
+                 aspp_dropout: float = 0.1):
         super().__init__()
         self.decoder = DeepLabV3PlusDecoder(
             in_channels, in_features, project_channels, aspp_channels,
-            aspp_dilations, convs_dim, norm, use_depthwise_separable_conv)
+            aspp_dilations, convs_dim, norm, use_depthwise_separable_conv,
+            aspp_dropout)
         y_ch = self.decoder.out_channels
         head_names = ["foreground", "center", "offset"]
         if eee_mask_on:

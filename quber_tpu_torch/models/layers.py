@@ -3,8 +3,11 @@
 Port of quber_tpu/models/layers.py. Submodules carry the flax scope names
 (`conv`, and `norm` for flax's `GroupNorm_0` / `BatchNorm_0` /
 `FrozenBatchNorm_0`) so that models/from_jax.py maps a flax variable tree
-onto a state dict by renaming alone. Inference only: BatchNorm runs from
-its running statistics and dropout is off.
+onto a state dict by renaming alone. A module's `training` flag is the flax
+`train` attribute: in eval mode BatchNorm runs from its running statistics
+and dropout is off; in training mode BatchNorm normalises with the batch's
+statistics and updates the running ones, and the ASPP dropout draws its mask
+from an explicit generator. FrozenBatchNorm is the same in both modes.
 """
 
 from __future__ import annotations
@@ -44,9 +47,14 @@ class FrozenBatchNorm(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """BatchNorm in inference mode: normalises with the running statistics
-    (flax `batch_stats`). Unlike nn.BatchNorm2d it keeps no batch counter, so
-    a flax tree maps onto it one leaf per tensor."""
+    """flax nn.BatchNorm(momentum=0.9): in eval mode it normalises with the
+    running statistics (flax `batch_stats`); in training mode with the
+    batch's mean and biased variance, and the running statistics move by
+    0.1 towards them. Unlike nn.BatchNorm2d it keeps no batch counter (a
+    flax tree maps onto it one leaf per tensor) and the running variance
+    takes the BIASED batch variance, as flax's does."""
+
+    momentum = 0.1  # torch's convention: the weight of the new batch
 
     def __init__(self, channels: int, eps: float = 1e-5):
         super().__init__()
@@ -57,8 +65,20 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(channels))
 
     def forward(self, x):
-        return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
-                            self.bias, training=False, eps=self.eps)
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
+                                self.bias, training=False, eps=self.eps)
+        # F.batch_norm with momentum 1 leaves the batch's mean and UNBIASED
+        # variance in the buffers it is given
+        mean = torch.zeros_like(self.running_mean)
+        var = torch.zeros_like(self.running_var)
+        y = F.batch_norm(x, mean, var, self.weight, self.bias, training=True,
+                         momentum=1.0, eps=self.eps)
+        n = x.numel() // x.shape[1]
+        with torch.no_grad():
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(var * ((n - 1) / n), self.momentum)
+        return y
 
 
 def make_norm(norm: str, channels: int) -> nn.Module | None:
@@ -116,11 +136,16 @@ class DepthwiseSeparableConv(nn.Module):
 class ASPP(nn.Module):
     """Atrous spatial pyramid pooling: 1x1 conv, three dilated 3x3 convs and a
     global-pool branch (mean -> 1x1 conv with bias, no norm), concat, 1x1
-    projection. Dropout is the identity at inference."""
+    projection, dropout. In training mode the dropout mask comes from
+    `dropout_generator` (a torch.Generator on the input's device, set by the
+    caller), so that a run is reproducible from its seed."""
 
     def __init__(self, in_channels: int, features: int = 256,
-                 dilations: Sequence[int] = (6, 12, 18), norm: str = "GN"):
+                 dilations: Sequence[int] = (6, 12, 18), norm: str = "GN",
+                 dropout: float = 0.1):
         super().__init__()
+        self.dropout = dropout
+        self.dropout_generator: torch.Generator | None = None
         use_bias = norm == ""
         self.conv1x1 = ConvNorm(in_channels, features, 1, use_bias=use_bias,
                                 norm=norm, act=F.relu)
@@ -140,7 +165,14 @@ class ASPP(nn.Module):
             branches.append(getattr(self, f"conv3x3_{i}")(x))
         pooled = self.pool_conv(x.mean(dim=(2, 3), keepdim=True))
         branches.append(pooled.expand_as(branches[0]))
-        return self.project(torch.cat(branches, dim=1))
+        x = self.project(torch.cat(branches, dim=1))
+        if self.training and self.dropout > 0:
+            if self.dropout_generator is None:
+                raise RuntimeError("ASPP dropout in training mode needs dropout_generator")
+            keep = torch.rand(x.shape, generator=self.dropout_generator,
+                              device=x.device) >= self.dropout
+            x = x * keep / (1.0 - self.dropout)
+        return x
 
 
 def max_pool_same(x, window: int, strides: int):

@@ -1,8 +1,10 @@
-"""The QuBER MaskRefiner meta-architecture: config and forward (torch, NCHW).
+"""The QuBER MaskRefiner meta-architecture: config, forward and losses
+(torch, NCHW).
 
 Port of quber_tpu/models/mask_refiner.py. Defaults correspond to the
 flagship config `mask_refiner_rgbd_concat_l2_gn_hf_m_b_f_c_o_l3_e2_b8.yaml`.
-The forward runs in float32; the losses wait for the training slice.
+The forward runs in float32. The losses keep the reference's channel order
+with the channel axis moved to dim 1.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ import torch
 from torch import nn
 
 from quber_tpu_torch.models.heads import ERROR_TYPE_CHANNELS, InsEmbedHead
-from quber_tpu_torch.models.layers import upsample_bilinear
+from quber_tpu_torch.models.layers import ASPP, upsample_bilinear
 from quber_tpu_torch.models.resnet import RGBDFusionBackbone
 
 
@@ -77,7 +79,7 @@ class MaskRefinerConfig:
     fast_top_k: int = 32
     # compute
     dtype: str = "float32"
-    # training memory knob of the JAX package, kept so configs load unchanged
+    # recompute the trunk blocks' activations in the backward pass
     remat_backbone: bool = False
     # the JAX package's Pallas switch; the port picks its kernel by the
     # device of the tensors, so this field is read by nothing here
@@ -122,6 +124,7 @@ class MaskRefiner(nn.Module):
             num_fusion_layers=cfg.num_backbone_fusion_layers,
             depth=cfg.resnet_depth, out_features=tuple(cfg.in_features),
             norm=cfg.backbone_norm, offset_input=cfg.offset_input_on,
+            remat=cfg.remat_backbone,
         )
         self.ins_embed_head = InsEmbedHead(
             self.backbone.out_channels,
@@ -139,7 +142,15 @@ class MaskRefiner(nn.Module):
             num_fusion_layers=cfg.num_head_fusion_layers,
             fusion_target=tuple(cfg.fusion_target),
             head_depthwise_separable=cfg.head_depthwise_separable,
+            aspp_dropout=cfg.aspp_dropout,
         )
+
+    def set_dropout_generator(self, generator: torch.Generator | None) -> None:
+        """The generator (on the model's device) that training-mode dropout
+        draws its masks from."""
+        for mod in self.modules():
+            if isinstance(mod, ASPP):
+                mod.dropout_generator = generator
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -178,3 +189,95 @@ def upsample_outputs(outputs: dict, common_stride: int) -> dict:
     if "offset" in up:
         up["offset"] = up["offset"] * common_stride
     return up
+
+
+# ---------------------------------------------------------------------------
+# Losses
+# ---------------------------------------------------------------------------
+
+def _bce_with_logits(logits, targets):
+    return logits.clamp_min(0) - logits * targets + torch.log1p(torch.exp(-logits.abs()))
+
+
+def foreground_loss(logits, targets, weights=None, top_k: float = 1.0):
+    """Hard-pixel-mining BCE: logits [B, H, W] raw, targets {0, 1}, weights
+    multiply the per-pixel losses; top_k < 1 keeps the largest top_k fraction
+    of the pixel losses of the whole batch."""
+    pixel = _bce_with_logits(logits, targets.float())
+    if weights is not None:
+        pixel = pixel * weights
+    flat = pixel.reshape(-1)
+    if top_k >= 1.0:
+        return flat.mean()
+    k = max(1, int(top_k * flat.shape[0]))
+    return torch.topk(flat, k, sorted=False).values.mean()
+
+
+def _weighted_mean(loss, weights):
+    wsum = weights.sum()
+    return torch.where(wsum > 0, loss.sum() / wsum.clamp_min(1.0), 0.0)
+
+
+def weighted_mse_loss(pred, target, weights):
+    """Centre loss: sum(mse * w) / sum(w), 0 when the weights sum to 0."""
+    return _weighted_mean((pred - target) ** 2 * weights, weights)
+
+
+def weighted_l1_loss(pred, target, weights):
+    """Offset loss: sum(|d| * w) / sum(w); w [B, 1, H, W] broadcasts over the
+    two offset channels but its normalising sum is counted once."""
+    return _weighted_mean((pred - target).abs() * weights, weights)
+
+
+def dice_loss(logits, targets, smooth: float = 1e-5):
+    """Softmax Dice over the channel axis of [B, C, H, W], sums over H, W per
+    (batch, channel), then the mean (monai DiceLoss(softmax=True) defaults)."""
+    p = torch.softmax(logits, dim=1)
+    t = targets.float()
+    inter = (p * t).sum(dim=(2, 3))
+    denom = p.sum(dim=(2, 3)) + t.sum(dim=(2, 3))
+    return (1.0 - (2.0 * inter + smooth) / (denom + smooth)).mean()
+
+
+def assemble_eee_targets(tp, tn, fp, fn, error_type: str):
+    """Stack the four error maps [..., H, W] into the error_type channel
+    layout -> [..., C, H, W]."""
+    if error_type == "e3":
+        chans = [tp, tn, fp, fn]
+    elif error_type == "e2":
+        chans = [tp + tn, fp + fn]
+    elif error_type == "e33":
+        chans = [tp + tn, fp, fn]
+    elif error_type == "e32":
+        chans = [fp, fn]
+    else:
+        raise ValueError(error_type)
+    return torch.stack(chans, dim=-3)
+
+
+def compute_losses(outputs: dict, targets: dict, cfg: MaskRefinerConfig) -> dict:
+    """All training losses from the stride-4 head outputs (full_res=False)
+    and full-resolution targets: sem_seg [B, H, W], sem_seg_weights [B, H, W]
+    (optional), center [B, H, W], center_weights [B, H, W], offset
+    [B, 2, H, W], offset_weights [B, H, W], eee_mask / eee_boundary
+    [B, C, H, W]."""
+    s = cfg.common_stride
+    losses = {}
+    fg = upsample_bilinear(outputs["foreground"], scale=s)[:, 0]
+    losses["loss_sem_seg"] = foreground_loss(
+        fg, targets["sem_seg"], targets.get("sem_seg_weights"),
+        cfg.foreground_loss_top_k) * cfg.foreground_loss_weight
+    center = upsample_bilinear(outputs["center"], scale=s)[:, 0]
+    losses["loss_center"] = weighted_mse_loss(
+        center, targets["center"], targets["center_weights"]) * cfg.center_loss_weight
+    offset = upsample_bilinear(outputs["offset"], scale=s) * s
+    losses["loss_offset"] = weighted_l1_loss(
+        offset, targets["offset"], targets["offset_weights"][:, None]) * cfg.offset_loss_weight
+    if cfg.eee_mask_on:
+        pred = upsample_bilinear(outputs["eee_mask"], scale=s)
+        losses["loss_eee_mask"] = dice_loss(pred, targets["eee_mask"]) * cfg.eee_mask_loss_weight
+    if cfg.eee_boundary_on:
+        pred = upsample_bilinear(outputs["eee_boundary"], scale=s)
+        losses["loss_eee_boundary"] = (dice_loss(pred, targets["eee_boundary"])
+                                       * cfg.eee_boundary_loss_weight)
+    return losses

@@ -13,6 +13,7 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from quber_tpu_torch.models.layers import ConvNorm, max_pool_same
 
@@ -71,15 +72,18 @@ class Bottleneck(nn.Module):
 
 class ResNetTrunk(nn.Module):
     """One DeepLab-ResNet trunk returning {res2, res3, res5} features:
-    res4 strides by 2, res5 dilates by 2 with multi-grid and stride 1."""
+    res4 strides by 2, res5 dilates by 2 with multi-grid and stride 1. With
+    `remat`, a block's activations are recomputed in the backward pass and
+    not kept (training memory for operations)."""
 
     def __init__(self, in_channels: int, depth: int = 50,
                  stem_out_channels: int = 128, res2_out_channels: int = 256,
                  res5_dilation: int = 2,
                  res5_multi_grid: Sequence[int] = (1, 2, 4),
                  out_features: Sequence[str] = ("res2", "res3", "res5"),
-                 norm: str = "FrozenBN"):
+                 norm: str = "FrozenBN", remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.stem = DeepLabStem(in_channels, stem_out_channels, norm)
         self.out_features = tuple(out_features)
         self.out_channels = {}
@@ -109,8 +113,12 @@ class ResNetTrunk(nn.Module):
     def forward(self, x):
         x = self.stem(x)
         outputs = {}
+        remat = self.remat and torch.is_grad_enabled()
         for stage, block in self.block_names:
-            x = getattr(self, block)(x)
+            if remat:
+                x = checkpoint(getattr(self, block), x, use_reentrant=False)
+            else:
+                x = getattr(self, block)(x)
             if stage in self.out_features:
                 outputs[stage] = x
         return outputs
@@ -127,7 +135,8 @@ class RGBDFusionBackbone(nn.Module):
     def __init__(self, fusion_strategy: str = "concat", num_fusion_layers: int = 2,
                  depth: int = 50,
                  out_features: Sequence[str] = ("res2", "res3", "res5"),
-                 norm: str = "FrozenBN", offset_input: bool = True):
+                 norm: str = "FrozenBN", offset_input: bool = True,
+                 remat: bool = False):
         super().__init__()
         if fusion_strategy not in ("concat", "add"):
             raise ValueError(fusion_strategy)
@@ -136,8 +145,10 @@ class RGBDFusionBackbone(nn.Module):
         self.offset_input = offset_input
         self.out_features = tuple(out_features)
         trunk_in = 6 if offset_input else 3
-        self.rgb_trunk = ResNetTrunk(trunk_in, depth, out_features=out_features, norm=norm)
-        self.depth_trunk = ResNetTrunk(trunk_in, depth, out_features=out_features, norm=norm)
+        self.rgb_trunk = ResNetTrunk(trunk_in, depth, out_features=out_features, norm=norm,
+                                     remat=remat)
+        self.depth_trunk = ResNetTrunk(trunk_in, depth, out_features=out_features, norm=norm,
+                                       remat=remat)
         self.out_channels = {f: self.rgb_trunk.out_channels[f] for f in self.out_features}
         for f in self.out_features:
             c = self.out_channels[f]

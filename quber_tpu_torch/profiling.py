@@ -1,4 +1,4 @@
-"""Where a single-frame predict() spends its time on the card.
+"""Where predict() and a train step spend their time on the card.
 
     python -m quber_tpu_torch.profiling [--out build/profile]
 
@@ -14,7 +14,11 @@ the in-repo int8 flagship weights, then reports:
   * the same for staged batched serving of 24 frames in batches of 8:
     per-stage device time of a batch (encode, forward, heads + centre NMS,
     group + merge with its host sync), the forward's rate, and the
-    device-busy share of a profiled staged pass.
+    device-busy share of a profiled staged pass;
+  * a breakdown of the flagship train step at batch 8 from a device pool of
+    16 rendered scenes (targets, forward with the losses, backward,
+    optimizer: CUDA events at the step's phase marks), the host time of a
+    step and the peak device memory, without and with `remat_backbone`.
 Needs CUDA, as chip_smoke.py does.
 """
 
@@ -33,6 +37,137 @@ import torch
 FRAMES = 8
 BATCH = 8
 BATCH_FRAMES = 24
+TRAIN_POOL = 16
+TRAIN_SLOTS = 32
+TRAIN_STEPS = 8
+TRAIN_PHASES = ("targets", "forward", "backward", "optimizer")
+
+
+class PhaseTimer:
+    """CUDA events at the phase marks of one train step: pass `mark` to the
+    step between `start()` and `phases()`."""
+
+    def __init__(self):
+        self._events = []
+
+    def start(self):
+        self._events = []
+        self.mark("start")
+
+    def mark(self, name: str):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        self._events.append((name, ev))
+
+    def phases(self) -> dict:
+        """Device ms of each phase since the mark before it (synchronises)."""
+        torch.cuda.synchronize()
+        return {name: self._events[i][1].elapsed_time(ev)
+                for i, (name, ev) in enumerate(self._events[1:])}
+
+
+def packed_scene_pool(model_cfg, train_cfg, n_scenes: int, n_slots: int, seed: int):
+    """uint8 [n_scenes, sample_bytes]: seeded rendered scenes, packed for the
+    device-target step (host work, numpy)."""
+    from quber_tpu_torch.data.synthetic import synthetic_records
+    from quber_tpu_torch.train.device_targets import PackedMapper
+
+    records = synthetic_records(n_scenes, model_cfg.height, model_cfg.width, seed=seed,
+                                depth_range=train_cfg.depth_range)
+    mapper = PackedMapper(train_cfg, model_cfg, n_slots)
+    return np.stack([mapper(r)["packed"] for r in records])
+
+
+def timed_train_steps(state, train_step, next_batch, steps: int) -> list[dict]:
+    """Run `steps` train steps; for each, the host ms (ending in a
+    synchronise), the device ms of its phases and the losses as floats."""
+    timer = PhaseTimer()
+    rows = []
+    for _ in range(steps):
+        bufs = next_batch()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        timer.start()
+        _, metrics = train_step(state, bufs, timer.mark)
+        phases = timer.phases()
+        rows.append({"ms": (time.perf_counter() - t0) * 1e3, "phases": phases,
+                     "losses": {k: float(v) for k, v in metrics.items()}})
+    return rows
+
+
+def _targets_breakdown(bufs, model_cfg, train_cfg) -> dict:
+    """Device ms of the parts of the step's target phase for one packed
+    batch (the stages of train.device_targets.build_targets, spelled out)."""
+    from quber_tpu_torch.ops import kernels
+    from quber_tpu_torch.ops.encoding import panoptic_train_targets
+    from quber_tpu_torch.ops.morphology import quadruple_error_maps
+    from quber_tpu_torch.train.device_targets import unpack_train_sample
+
+    timer = PhaseTimer()
+    sigma = train_cfg.gaussian_sigma
+    with torch.no_grad():
+        timer.start()
+        _, gt, gv, pert, pv = unpack_train_sample(bufs, model_cfg.height, model_cfg.width,
+                                                  TRAIN_SLOTS)
+        timer.mark("unpack")
+        stats = kernels.instance_stats(gt, gv)
+        panoptic_train_targets(gt, gv, sigma=sigma, stats=stats)
+        timer.mark("statistics_and_panoptic_targets")
+        _, centers, ok = kernels.instance_stats(pert, pv, return_ok=True)
+        kernels.encode_initial_masks_batched(pert, ok, centers, sigma, normalize=True)
+        timer.mark("statistics_and_input_encoding")
+        quadruple_error_maps(gt, pert, gv, pv)
+        timer.mark("error_maps")
+    return timer.phases()
+
+
+def _train_report(params):
+    """The flagship train step at batch 8 from the given weights, and the
+    same with `remat_backbone` (the trunk blocks' activations recomputed in
+    the backward pass) for its cost in time and its gain in memory."""
+    import dataclasses
+
+    from quber_tpu_torch.config import TrainConfig
+    from quber_tpu_torch.models.from_jax import state_dict_from_jax
+    from quber_tpu_torch.models.mask_refiner import MaskRefinerConfig
+    from quber_tpu_torch.train.device_targets import DevicePool, make_device_target_step
+    from quber_tpu_torch.train.loop import create_train_state
+
+    model_cfg, train_cfg = MaskRefinerConfig(), TrainConfig(batch_size=BATCH, warmup_iters=2)
+    packed = packed_scene_pool(model_cfg, train_cfg, TRAIN_POOL, TRAIN_SLOTS, seed=11)
+    weights = state_dict_from_jax(params)
+
+    def run(cfg, steps):
+        state = create_train_state(cfg, train_cfg, device="cuda")
+        state.model.load_state_dict(weights, strict=True)
+        pool = DevicePool(packed, BATCH, train_cfg.seed, "cuda")
+        train_step = make_device_target_step(cfg, train_cfg, TRAIN_SLOTS)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        rows = timed_train_steps(state, train_step, pool.next_batch, steps)
+        steady = rows[2:]
+        return pool, {
+            "steps": steps,
+            "step_ms_median": statistics.median(r["ms"] for r in steady),
+            "frames_per_s": BATCH * 1e3 / statistics.median(r["ms"] for r in steady),
+            "phases_median_ms": {p: statistics.median(r["phases"][p] for r in steady)
+                                 for p in TRAIN_PHASES},
+            "first_step_ms": rows[0]["ms"],
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+            "total_loss": [r["losses"]["total_loss"] for r in rows],
+        }
+
+    pool, report = run(model_cfg, TRAIN_STEPS)
+    bufs = pool.next_batch()
+    targets = [_targets_breakdown(bufs, model_cfg, train_cfg) for _ in range(5)]
+    del pool, bufs
+    _, remat = run(dataclasses.replace(model_cfg, remat_backbone=True), 5)
+    return {
+        "batch": BATCH, "slots": TRAIN_SLOTS, "pool": TRAIN_POOL, **report,
+        "targets_phase_median_ms": {k: statistics.median(t[k] for t in targets)
+                                    for k in targets[0]},
+        "remat_backbone": remat,
+    }
 
 
 def _device_busy(fn):
@@ -162,7 +297,8 @@ def main():
     from quber_tpu_torch.predictor import MaskRefinerPredictor
     from quber_tpu_torch.train.checkpoint import load_default_params
 
-    pred = MaskRefinerPredictor(params=load_default_params(), device="cuda")
+    params = load_default_params()
+    pred = MaskRefinerPredictor(params=params, device="cuda")
     h, w = pred.config.height, pred.config.width
     frames = []
     for i in range(FRAMES):
@@ -200,6 +336,9 @@ def main():
     with open(os.path.join(args.out, "key_averages.txt"), "w") as fh:
         fh.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=60))
     batched = _batched_report(pred, h, w, forward_flop, args.out)
+    del pred
+    torch.cuda.empty_cache()
+    train = _train_report(params)
     print(json.dumps({
         "card": smi,
         "stages_median_ms": med,
@@ -210,6 +349,7 @@ def main():
         "device_busy_share": device_ms / wall_ms if wall_ms else None,
         "top_kernels": table,
         "batched_staged": batched,
+        "train_step": train,
     }, indent=1))
 
 

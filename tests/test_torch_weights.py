@@ -48,7 +48,8 @@ def test_load_config_flagship_matches_jax_and_defaults():
     jmodel, jtrain = jax_load_config(FLAGSHIP)
     assert dataclasses.asdict(model) == dataclasses.asdict(jmodel)
     assert model == MaskRefinerConfig()  # the defaults are the flagship
-    assert train["batch_size"] == jtrain.batch_size == 8
+    assert dataclasses.asdict(train) == dataclasses.asdict(jtrain)
+    assert train.batch_size == 8
 
 
 def test_load_quantized_params_matches_jax():
