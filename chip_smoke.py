@@ -63,7 +63,25 @@ Phases (any failure ends the run with a non-zero exit code):
      and must come back as noise below 1e-3 of their weight's);
  13. checkpoint: save_state after step 12, restore_state into a fresh state,
      step 13 from both gives the same losses within rtol 1e-6;
- 14. print a JSON line of the kernels' numbers, the frame time, and as the
+ 14. evaluation: write the first 16 frames of the synthetic-OSD anchor
+     protocol (seed 1000, depth range 250-1500 mm, 0.2% depth dropout) with
+     data/make_synthetic_dataset.py into a temporary directory, read them
+     back through the OSD walker, and run the port's run_eval with the
+     PerturbedGT base and the unfiltered refiner on the card, per image
+     (one statistics, encode and group launch per frame, no batched launch)
+     and streamed in batches of 8 (one launch of each batched kernel per
+     batch): per frame the same instance count and >= 99.5% of the refined
+     labels, aggregate means within 0.005; the per-image means against the
+     JAX package's float32 ones on the CPU
+     (quber_tpu_torch/evaluation/reference_synth_osd16.json): Objects and
+     Boundary F of both stages within 2e-4, tight enough to catch bf16 or
+     TF32 convolutions; the kernels held against their plain
+     versions at the evaluation frames' shapes; then the foreground filter:
+     two frames through LMFFNet and one through CGNet (random init from a
+     fixed generator), finite logits, a [480, 640] bool foreground and >= 99%
+     of the argmax equal to the same net's on the CPU; seconds per frame by
+     stage;
+ 15. print a JSON line of the kernels' numbers, the frame time, and as the
      last line {"ok": true, "device": {...}}.
 Needs CUDA; it has no CPU mode.
 """
@@ -99,6 +117,13 @@ GRAD_COSINE = 0.999
 # below this share of the norm of its conv weight's gradient
 ZERO_GRAD_SHARE = 1e-3
 CHECKPOINT_RTOL = 1e-6
+EVAL_FRAMES = 16
+EVAL_MEANS_ATOL = 0.005  # streamed against per-image aggregate means
+# the per-image means against the JAX package's float32 ones on the CPU: above
+# the analytic false-positive ellipse's 8e-6, below the 0.001-0.005 that bf16
+# or TF32 convolutions move them by
+EVAL_REFERENCE_ATOL = 2e-4
+FG_AGREEMENT = 0.99
 # H100 SXM data sheet: HBM3 rate and fp32 rate outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
@@ -886,6 +911,173 @@ def train_phases(params, rows, floor_ms, dev, card):
     card_against_cpu(params, dev)
 
 
+class _Recording:
+    """A refiner for run_eval that keeps each frame's initial and refined
+    masks."""
+
+    def __init__(self, inner):
+        self.inner, self.initial, self.masks = inner, [], []
+        self.seconds = inner.seconds
+
+    def predict(self, rgb_path, depth_path, initial_masks, fg_mask):
+        out = self.inner.predict(rgb_path, depth_path, initial_masks, fg_mask)
+        self.initial.append(initial_masks)
+        self.masks.append(out[0])
+        return out
+
+    def predict_stream(self, items, batch_size):
+        def recorded():
+            for item in items:
+                self.initial.append(item[2])
+                yield item
+
+        for out in self.inner.predict_stream(recorded(), batch_size):
+            self.masks.append(out[0])
+            yield out
+
+
+def _check_eval_kernels(dev, base_masks):
+    """The statistics and encode kernels, single-frame and batched, at the
+    evaluation frames' shapes (their perturbed initial masks)."""
+    frames = [torch.from_numpy(np.asarray(m) > 0) for m in base_masks]
+    _check_encode(f"eval frame 1, N={len(frames[0])}", frames[0].to(dev),
+                  torch.ones(len(frames[0]), dtype=torch.bool, device=dev))
+    n = max(len(f) for f in frames[:BATCH])
+    masks = torch.zeros((BATCH, n, H, W), dtype=torch.bool)
+    valid = torch.zeros((BATCH, n), dtype=torch.bool)
+    for b, f in enumerate(frames[:BATCH]):
+        masks[b, :len(f)] = f
+        valid[b, :len(f)] = True
+    _check_encode(f"eval frames 1-{BATCH}, B={BATCH} N={n}", masks.to(dev), valid.to(dev))
+
+
+def _fg_phase(rgb_paths, depth_paths, params, card):
+    """Two frames refined with the LMFFNet filter and one with CGNet on the
+    card; each net's logits and argmax against the same net on the CPU."""
+    from quber_tpu_torch.evaluation.base_models import GT
+    from quber_tpu_torch.evaluation.refiner_models import QuBERRefiner
+    from quber_tpu_torch.models.fg_predictor import CGNetPredictor, LMFFNetPredictor
+    from quber_tpu_torch.ops.preprocess import load_rgbd
+
+    seconds = {}
+    for fg_model, cls, n in (("lmffnet", LMFFNetPredictor, 2), ("cgnet", CGNetPredictor, 1)):
+        refiner = QuBERRefiner(params=params, fg_model=fg_model, device="cuda")
+        cpu = cls(seed=0, device="cpu")
+        for rgb, depth in list(zip(rgb_paths, depth_paths))[:n]:
+            masks = GT("OSD").predict(rgb, depth)[0]
+            refined, _, _, fg = refiner.predict(rgb, depth, masks, None)
+            x = refiner.fg_predictor.inputs(*load_rgbd(rgb, depth, cls.size)[:2])
+            logits = refiner.fg_predictor.logits(x)
+            torch.cuda.synchronize()
+            agree = float((logits.argmax(dim=0).cpu() == cpu.logits(x).argmax(dim=0)).float()
+                          .mean())
+            finite = bool(torch.isfinite(logits).all())
+            print(f"{fg_model} on the card: logits {list(logits.shape)} finite {finite}, "
+                  f"foreground {fg.shape} {fg.dtype} ({fg.mean():.4f} of the pixels), "
+                  f"argmax equal to the CPU's on {agree:.6f} (need >= {FG_AGREEMENT}), "
+                  f"{len(refined)} refined instances kept of {len(masks)} GT masks handed in")
+            if not finite or fg.shape != (H, W) or fg.dtype != bool or agree < FG_AGREEMENT:
+                raise AssertionError(f"{fg_model}: the foreground filter failed on the card")
+        seconds[fg_model] = refiner.seconds["fg"] / n
+    print(f"foreground net s/frame (LMFFNet: forward on the refiner's frame; CGNet: its own "
+          f"320x240 read + inpaint + forward): "
+          f"{ {k: round(v, 4) for k, v in seconds.items()} } on {card}")
+    return seconds
+
+
+def evaluation_phase(params, rows, card):
+    """Phase 14: the evaluation entry point on the card (run_eval per image
+    and streamed) on the first frames of the synthetic-OSD anchor."""
+    from quber_tpu_torch.data.make_synthetic_dataset import main as make_dataset
+    from quber_tpu_torch.evaluation.datasets import build_file_lists
+    from quber_tpu_torch.evaluation.harness import PRINT_KEYS, masks_to_label_image, run_eval
+    from quber_tpu_torch.evaluation.refiner_models import QuBERRefiner
+    from quber_tpu_torch.ops import kernels
+
+    dev = torch.device("cuda", 0)
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "quber_tpu_torch",
+                           "evaluation", "reference_synth_osd16.json")) as f:
+        reference = json.load(f)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "synth_osd")
+        t0 = time.perf_counter()
+        make_dataset(["--out", root, "--n", str(EVAL_FRAMES), "--seed", "1000",
+                      "--depth-range", "250", "1500"])
+        rgb_paths, depth_paths, anno_paths = build_file_lists("OSD", root)
+        print(f"{len(rgb_paths)} frames written and listed in {time.perf_counter() - t0:.1f} s")
+        if len(rgb_paths) != EVAL_FRAMES:
+            raise AssertionError("the OSD walker did not find the frames written")
+
+        refiner = _Recording(QuBERRefiner(params=params, use_fg_filter=False, device="cuda"))
+        passes = {}
+        for name, batch in (("per-image", 0), ("streamed", BATCH)):
+            refiner.inner.seconds.clear()
+            refiner.initial, refiner.masks = [], []
+            os.makedirs(os.path.join(tmp, name))
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            res = run_eval(base_model="perturbed-gt", refiner_model=refiner,
+                           test_dataset="OSD", dataset_path=root, refine_batch=batch,
+                           csv_path=os.path.join(tmp, name, "eval.csv"), device="cuda")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            passes[name] = (res, _launch_counts(), list(refiner.masks), wall)
+        _check_eval_kernels(dev, refiner.initial)
+        fg_seconds = _fg_phase(rgb_paths, depth_paths, params, card)
+
+    (res1, launches1, masks1, wall1), (res2, launches2, masks2, wall2) = passes.values()
+    print(f"evaluation per image: launches {launches1}; streamed (B={BATCH}): {launches2}")
+    n_batches = -(-EVAL_FRAMES // BATCH)
+    for name in ("instance_stats", "encode_initial_masks", "group_pixels"):
+        if launches1[name] != EVAL_FRAMES:
+            raise AssertionError(f"per-image evaluation: {name} launched {launches1[name]} "
+                                 f"times for {EVAL_FRAMES} frames")
+    for name in ("encode_initial_masks_batched", "group_pixels_batched"):
+        if launches1[name]:
+            raise AssertionError(f"per-image evaluation: {name} was launched")
+    _check_launches("streamed evaluation", launches2, n_batches)
+
+    agreements = []
+    for i, (a, b) in enumerate(zip(masks1, masks2)):
+        la = masks_to_label_image(a, np.zeros((H, W), np.int32))
+        lb = masks_to_label_image(b, np.zeros((H, W), np.int32))
+        agreements.append(float((la == lb).mean()))
+        if len(a) != len(b) or agreements[-1] < PANOPTIC_AGREEMENT:
+            raise AssertionError(f"evaluation frame {i}: per image {len(a)} instances, streamed "
+                                 f"{len(b)}, label agreement {agreements[-1]:.6f}")
+    if len(masks1) != EVAL_FRAMES or len(masks2) != EVAL_FRAMES:
+        raise AssertionError("a pass did not refine every frame")
+    print(f"streamed against per image: instances per frame {[len(m) for m in masks1]} equal, "
+          f"label agreement min {min(agreements):.6f} (need >= {PANOPTIC_AGREEMENT})")
+    worst = max(abs(res2[s][k] - res1[s][k]) for s in ("initial", "refined") for k in PRINT_KEYS)
+    print(f"streamed against per image: largest difference of an aggregate mean {worst:.3g} "
+          f"(tolerance {EVAL_MEANS_ATOL})")
+    if not worst <= EVAL_MEANS_ATOL:
+        raise AssertionError("streamed and per-image evaluation disagree")
+
+    for key in ("Objects F-measure", "Boundary F-measure"):
+        for stage in ("initial", "refined"):
+            got, want = res1[stage][key], reference[stage][key]
+            print(f"{stage} {key}: card {got:.6f}, JAX package on the CPU {want:.6f}, "
+                  f"difference {got - want:+.6f} (tolerance {EVAL_REFERENCE_ATOL})")
+            if not abs(got - want) <= EVAL_REFERENCE_ATOL:
+                raise AssertionError(f"{stage} {key} is off the JAX package's")
+
+    sec = res1["seconds"]
+    per_frame = {"read, normalise and inpaint": sec["read"], "annotation": sec["annotation"],
+                 "base model": sec["base"], "refine": sec["refine"], "metrics": sec["metrics"]}
+    per_frame = {k: round(v / EVAL_FRAMES, 4) for k, v in per_frame.items()}
+    print(f"evaluation seconds per frame by stage, per-image pass: {per_frame}, foreground "
+          f"net {fg_seconds}; pass wall {wall1:.2f} s per image, {wall2:.2f} s streamed "
+          f"({EVAL_FRAMES} frames) on {card}")
+    for row in rows:
+        name = row["name"]
+        if name in launches1:
+            row["eval"] = {"launches_per_image": launches1[name],
+                           "launches_streamed": launches2[name]}
+    return res1, res2
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -938,6 +1130,8 @@ def main() -> int:
         row["floor_ms"] = floor_ms
     multiscale(params)
     train_phases(params, rows, floor_ms, dev, card)
+    torch.cuda.empty_cache()
+    evaluation_phase(params, rows, card)
 
     steady = times[1:]
     med = statistics.median(steady)

@@ -11,6 +11,10 @@ serving) and `predictor.MultiScalePredictor`, with the encode and group
 kernels and their batched launches hand-written in CUDA for sm_90a
 (`ops/csrc/kernels.cu`); and training on rendered synthetic scenes (`train/`:
 losses, device-side targets through the same kernels, Adam + WarmupPolyLR,
-checkpoints), driven by `train_net_torch.py`. The training tensors (batch,
-targets, losses) are channels first.
+checkpoints), driven by `train_net_torch.py`; and evaluation over benchmark
+datasets (`evaluation/`: walkers, base models, the refiner wrapper with the
+CGNet / LMFFNet foreground filter, metrics, harness), driven by
+`run_eval_torch.py`, with PNG files, resizes and Telea inpainting in numpy
+in place of OpenCV and imageio (`data/png.py`, `ops/preprocess.py`). The
+training tensors (batch, targets, losses) are channels first.
 """

@@ -1,0 +1,123 @@
+"""Base (initial) segmenters for the evaluation harness.
+
+Port of quber_tpu/evaluation/base_models.py: the oracle and test doubles
+(GT, Empty, npy replay) and the perturbed GT used by the synthetic
+protocols, behind the interface
+
+    predict(rgb_path, depth_path) -> (masks [N, H, W] bool, fg_mask | None, seconds)
+
+The learned base segmenters of the zoo are not ported yet: their names
+raise NotImplementedError (ROADMAP.md, Queue 1 item 14).
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+
+from quber_tpu_torch.data import png
+from quber_tpu_torch.data.perturb import perturb_masks
+from quber_tpu_torch.evaluation.datasets import BG_LABELS, EVAL_H, EVAL_W
+from quber_tpu_torch.ops.preprocess import resize_nearest
+
+ZOO_BASE_MODELS = (
+    "ucn", "ucn-zoomin", "msmformer", "msmformer-zoomin", "msmformer-pretrained",
+    "uoaisnet-pretrained", "uoisnet3d", "uoisnet3d-pretrained", "uoaisnet",
+    "uoaisnet-amodal", "sam", "sam-depth", "detic", "grounded-sam",
+)
+
+
+class Empty:
+    """No initial prediction."""
+
+    def predict(self, rgb_path, depth_path):
+        return np.zeros((0, EVAL_H, EVAL_W), bool), None, 0.0
+
+
+class GT:
+    """Oracle initial masks from the annotation."""
+
+    def __init__(self, dataset: str = "OSD"):
+        self.dataset = dataset
+
+    def predict(self, rgb_path, depth_path):
+        if self.dataset == "OSD":
+            anno_path = rgb_path.replace("image_color", "annotation")
+        elif self.dataset == "OCID":
+            anno_path = rgb_path.replace("rgb", "label")
+        elif self.dataset == "WISDOM":
+            anno_path = rgb_path.replace("color_ims", "modal_segmasks")
+        else:
+            anno_path = rgb_path.replace("rgb", "annotation")
+        anno = png.imread(anno_path)
+        if anno.ndim == 3:
+            # an RGB-encoded label image (or an annotation path that resolved
+            # to the colour image): one channel, so the stack stays [N, H, W]
+            anno = anno[..., 0]
+        anno = resize_nearest(anno, (EVAL_H, EVAL_W))
+        if self.dataset == "OCID":
+            key = "floor" if "floor" in rgb_path else "table"
+            for label in BG_LABELS[key]:
+                anno[anno == label] = 0
+        labels = np.unique(anno)
+        labels = labels[labels != 0]
+        masks = np.array([anno == l for l in labels]) if len(labels) else np.zeros((0, EVAL_H, EVAL_W), bool)
+        return masks, None, 0.0
+
+
+class LoadNpyBaseModel:
+    """Replay pre-recorded initial masks (<npy_folder>/<frame>.npy)."""
+
+    def __init__(self, npy_folder: str = ""):
+        self.npy_folder = npy_folder
+
+    def predict(self, rgb_path, depth_path):
+        npy_path = os.path.join(
+            self.npy_folder, os.path.basename(rgb_path).replace(".png", ".npy")
+        )
+        masks = np.load(npy_path)
+        return np.asarray(masks) > 0, None, 0.0
+
+
+class PerturbedGT:
+    """GT masks perturbed with the data-generation corruptions, from one
+    RandomState across the frames in order."""
+
+    def __init__(self, dataset: str = "OSD", seed: int = 0,
+                 target_iou=(0.6, 0.9), ratios: dict | None = None):
+        self.gt = GT(dataset)
+        self.rng = np.random.RandomState(seed)
+        self.target_iou = target_iou
+        self.ratios = ratios
+
+    def predict(self, rgb_path, depth_path):
+        masks, fg, t = self.gt.predict(rgb_path, depth_path)
+        masks = perturb_masks(masks, self.rng, target_iou=self.target_iou,
+                              ratios=self.ratios)
+        return masks, fg, t
+
+
+# graph-structure corruptions only (per-scene FP / split / merge, no
+# boundary jitter)
+STRUCTURAL_RATIOS = {"fp": 1.0, "over": 1.0, "under": 1.0, "delete": 0.0,
+                     "boundary": 0.0}
+
+
+def build_base_model(name: str, dataset: str, npy_folder: str = ""):
+    if name == "gt":
+        return GT(dataset)
+    if name == "empty":
+        return Empty()
+    if name == "npy":
+        return LoadNpyBaseModel(npy_folder)
+    if name == "perturbed-gt":
+        return PerturbedGT(dataset)
+    if name == "perturbed-gt-structural":
+        return PerturbedGT(dataset, ratios=STRUCTURAL_RATIOS)
+    if name in ZOO_BASE_MODELS:
+        raise NotImplementedError(
+            f"base model {name} is not ported yet (ROADMAP.md, Queue 1 item 14)")
+    raise NotImplementedError(
+        f"base model {name}; available: gt, empty, npy, perturbed-gt, "
+        "perturbed-gt-structural")

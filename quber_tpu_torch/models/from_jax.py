@@ -1,11 +1,14 @@
-"""Carry a flax variable tree across to a torch state dict.
+"""Carry a flax variable tree across to a torch state dict (the MaskRefiner
+and the foreground nets CGNet and LMFFNet).
 
 The port's modules are named after the flax scopes, so the map is a rename:
-  * `<scope>/kernel` -> `<scope>.weight`, conv kernels HWIO -> OIHW;
+  * `<scope>/kernel` -> `<scope>.weight`, conv kernels HWIO -> OIHW and
+    dense kernels [in, out] -> [out, in];
   * the norm scopes `GroupNorm_0`, `BatchNorm_0`, `FrozenBatchNorm_0` -> `norm`,
     with `scale` -> `weight`, `frozen_weight` / `frozen_bias` -> `weight` /
     `bias` and `frozen_mean` / `frozen_var` -> `running_mean` / `running_var`;
-  * `batch_stats/.../BatchNorm_0/{mean,var}` -> `norm.running_{mean,var}`.
+  * `batch_stats/.../BatchNorm_0/{mean,var}` -> `norm.running_{mean,var}`;
+  * a PReLU's `alpha` -> the `weight` of its nn.PReLU.
 `state_dict_to_jax` is the inverse (it reads the norm scopes off the module
 types), and `load_optax_adam_state` carries Adam moments kept in the flax
 layout into a torch optimizer.
@@ -31,6 +34,8 @@ _LEAF = {
     "frozen_var": "running_var",
     "mean": "running_mean",
     "var": "running_var",
+    "alpha": "weight",  # a PReLU's per-channel slope
+    "prelu_alpha": "prelu_alpha",
 }
 
 
@@ -61,6 +66,8 @@ def state_dict_from_jax(tree: dict) -> dict:
         arr = np.array(value, np.float32)  # a writable copy
         if leaf == "kernel" and arr.ndim == 4:
             arr = np.ascontiguousarray(arr.transpose(3, 2, 0, 1))
+        elif leaf == "kernel" and arr.ndim == 2:
+            arr = np.ascontiguousarray(arr.T)
         name = ".".join(scopes + [_LEAF[leaf]])
         if name in out:
             raise KeyError(f"two flax leaves map onto {name}")
@@ -92,11 +99,19 @@ def state_dict_to_jax(model: nn.Module) -> dict:
             scope, leaves = _TO_JAX[type(parent)]
             if isinstance(parent, BatchNorm) and leaf.startswith("running_"):
                 collection = "batch_stats"
-            scopes, leaf = scopes[:-1] + [scope], leaves[leaf]
+            # a module's `norm` stands for flax's unnamed norm scope; a norm
+            # with a name of its own (the foreground nets' `bn`) keeps it
+            if scopes[-1] == "norm":
+                scopes = scopes[:-1] + [scope]
+            leaf = leaves[leaf]
+        elif isinstance(parent, nn.PReLU):
+            leaf = "alpha"
         elif leaf == "weight":
             leaf = "kernel"
             if arr.ndim == 4:
                 arr = np.ascontiguousarray(arr.transpose(2, 3, 1, 0))
+            elif arr.ndim == 2:
+                arr = np.ascontiguousarray(arr.T)
         d = tree.setdefault(collection, {})
         for s in scopes:
             d = d.setdefault(s, {})

@@ -12,6 +12,7 @@ from an explicit generator. FrozenBatchNorm is the same in both modes.
 
 from __future__ import annotations
 
+import math
 from typing import Callable, Sequence
 
 import torch
@@ -178,3 +179,28 @@ class ASPP(nn.Module):
 def max_pool_same(x, window: int, strides: int):
     """Max pool matching torch MaxPool2d(kernel, stride, padding=k // 2)."""
     return F.max_pool2d(x, window, strides, (window - 1) // 2)
+
+
+def avg_pool_torch(x):
+    """AvgPool2d(3, 2, padding=1) with count_include_pad=True."""
+    return F.avg_pool2d(x, 3, 2, 1, count_include_pad=True)
+
+
+def reset_lecun(model: nn.Module, generator: torch.Generator) -> None:
+    """Random init from `generator` after the flax defaults: LeCun-normal
+    convolution and dense kernels (std 1 / sqrt(fan_in)), zero biases, PReLU
+    slopes 0.25, identity BatchNorm."""
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, (nn.Conv2d, nn.Linear)):
+                std = 1.0 / math.sqrt(mod.weight[0].numel())
+                mod.weight.copy_(torch.randn(mod.weight.shape, generator=generator) * std)
+                if mod.bias is not None:
+                    mod.bias.zero_()
+            elif isinstance(mod, BatchNorm):
+                mod.weight.fill_(1.0)
+                mod.bias.zero_()
+                mod.running_mean.zero_()
+                mod.running_var.fill_(1.0)
+            elif isinstance(mod, nn.PReLU):
+                mod.weight.fill_(0.25)

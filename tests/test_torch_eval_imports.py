@@ -1,0 +1,48 @@
+"""The port needs none of OpenCV, imageio, Pillow, JAX or the JAX package:
+a fresh interpreter in which importing any of them fails imports every
+module of quber_tpu_torch and the port's scripts, and runs run_eval on one
+small frame on the CPU (the foreground filter included)."""
+
+import os
+import subprocess
+import sys
+import textwrap
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+SCRIPT = textwrap.dedent("""
+    import importlib, pkgutil, sys, tempfile
+    for name in ("cv2", "imageio", "PIL", "jax", "jaxlib", "flax", "quber_tpu"):
+        sys.modules[name] = None  # any import of it now raises ImportError
+
+    import torch
+    torch.set_num_threads(2)
+    import quber_tpu_torch
+    names = [m.name for m in pkgutil.walk_packages(quber_tpu_torch.__path__, "quber_tpu_torch.")]
+    for name in names + ["run_eval_torch", "train_net_torch", "chip_smoke"]:
+        importlib.import_module(name)
+
+    from quber_tpu_torch.data.make_synthetic_dataset import main as make_dataset
+    from quber_tpu_torch.evaluation.harness import run_eval
+    from quber_tpu_torch.models.mask_refiner import MaskRefinerConfig
+
+    with tempfile.TemporaryDirectory() as tmp:
+        make_dataset(["--out", tmp + "/osd", "--n", "1", "--height", "48", "--width", "64"])
+        cfg = MaskRefinerConfig(height=96, width=128, resnet_depth=14)
+        res = run_eval(base_model="perturbed-gt", refiner_model="maskrefiner",
+                       dataset_path=tmp + "/osd", config=cfg, csv_path=tmp + "/x.csv",
+                       device="cpu")
+    assert set(res) >= {"initial", "refined", "seconds"}, res
+    assert res["seconds"]["fg"] > 0
+    bad = [m for m in ("cv2", "imageio", "PIL", "jax", "quber_tpu") if sys.modules.get(m)]
+    assert not bad, bad
+    print("OK", len(names))
+""")
+
+
+def test_port_runs_without_opencv_imageio_pillow_or_jax():
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", SCRIPT], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-4000:]
+    assert "OK" in out.stdout
