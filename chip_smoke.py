@@ -70,18 +70,45 @@ Phases (any failure ends the run with a non-zero exit code):
      PerturbedGT base and the unfiltered refiner on the card, per image
      (one statistics, encode and group launch per frame, no batched launch)
      and streamed in batches of 8 (one launch of each batched kernel per
-     batch): per frame the same instance count and >= 99.5% of the refined
-     labels, aggregate means within 0.005; the per-image means against the
-     JAX package's float32 ones on the CPU
+     batch), each pass reading its frames: per frame the same instance
+     count and >= 99.5% of the refined labels, aggregate means within 0.005;
+     the per-image means against the JAX package's float32 ones on the CPU
      (quber_tpu_torch/evaluation/reference_synth_osd16.json): Objects and
-     Boundary F of both stages within 2e-4, tight enough to catch bf16 or
-     TF32 convolutions; the kernels held against their plain
-     versions at the evaluation frames' shapes; then the foreground filter:
+     Boundary F of the initial stage exactly, of the refined stage within
+     2e-4, tight enough to catch bf16 or TF32 convolutions; the kernels held
+     against their plain versions at the evaluation frames' shapes; then the
+     foreground filter:
      two frames through LMFFNet and one through CGNet (random init from a
      fixed generator), finite logits, a [480, 640] bool foreground and >= 99%
      of the argmax equal to the same net's on the CPU; seconds per frame by
-     stage;
- 15. print a JSON line of the kernels' numbers, the frame time, and as the
+     stage. The frames the per-image pass read are kept for phases 16-19;
+ 15. the kernels at the shapes of the bfloat16 serving configuration and the
+     benchmark: single-frame statistics and encode at N = 24 and group at
+     K = 24 (below fast_top_k: no fast path); at B = 16, statistics and
+     encode at N = 24 and N = 64 and group at K = 24 and K = 200 -- exact,
+     encode within 1e-6 -- timed as in phase 3;
+ 16. bfloat16 evaluation: the 16 frames of phase 14 through run_eval with a
+     MaskRefinerConfig(dtype="bfloat16") refiner, per image: the initial
+     stage exactly the JAX package's; per frame the labels against phase
+     14's float32 pass: at most 5 frames moved (another count or < 99.9% of
+     the labels; the JAX package's own bf16 moves 5); on frames 1 and 6,
+     each output's mean |bf16 - float32| within 0.5-2x the JAX package's own
+     on that frame, where a float32 forward (0) and a float16 one, both run
+     as controls, must fall outside; printed, not gated: the refined means
+     against the JAX package's float32 and bfloat16 means;
+ 17. checkpoint evaluation: the state saved after phase 11's steps,
+     evaluated on 4 frames through run_eval_torch.py's main from its
+     checkpoint directory, must give the CSV rows of run_eval on the same
+     weights held in memory, exactly;
+ 18. the CLIs on the card, in two subprocesses at once, with the
+     bfloat16 serving config (24 candidates): predict_torch.py on one
+     written frame and demo_torch.py on 2 (GT base model, one batch); each
+     frame's instance count equal to the same predictor's in this process,
+     whose single-frame and batched launches are counted;
+ 19. bench_torch.py at 32 frames (phase 14's 16 frames twice), one pass of
+     each configuration: its JSON line, and the launches of the batched
+     kernels at B = 16;
+ 20. print a JSON line of the kernels' numbers, the frame time, and as the
      last line {"ok": true, "device": {...}}.
 Needs CUDA; it has no CPU mode.
 """
@@ -119,10 +146,26 @@ ZERO_GRAD_SHARE = 1e-3
 CHECKPOINT_RTOL = 1e-6
 EVAL_FRAMES = 16
 EVAL_MEANS_ATOL = 0.005  # streamed against per-image aggregate means
-# the per-image means against the JAX package's float32 ones on the CPU: above
-# the analytic false-positive ellipse's 8e-6, below the 0.001-0.005 that bf16
-# or TF32 convolutions move them by
+# the per-image refined means against the JAX package's float32 ones on the
+# CPU: above the card's float32 summation order (1e-6), below the
+# 0.001-0.005 that bf16 or TF32 convolutions move them by; the initial stage
+# needs no model and must be exact
 EVAL_REFERENCE_ATOL = 2e-4
+# the bf16 forward's mean |bf16 - float32| of each output over the JAX
+# package's own on the same frame (reference_synth_osd16.json): the port's on
+# the CPU reads 1.02-1.31; a float32 forward reads 0, a float16 one ~0.2
+BF16_ERR_LOW, BF16_ERR_HIGH = 0.5, 2.0
+# bf16 moves an anchor frame off float32 (its count, or > 0.1% of its labels)
+# where an instance sits on a knife edge, each bf16 forward its own few: the
+# JAX package's own bf16 on the CPU moves 5 of the 16 (frames 1, 2, 8, 12, 14;
+# tests/bf16_anchor_frames.py), and no more may move here
+BF16_AGREEMENT = 0.999
+BF16_MOVED_FRAMES = 5
+TUNED_K = TUNED_SLOTS = 24  # bench.py's tuned serving configuration
+BENCH_BATCH = 16
+BENCH_FRAMES = 32
+CKPT_EVAL_FRAMES = 4
+DEMO_FRAMES = 2
 FG_AGREEMENT = 0.99
 # H100 SXM data sheet: HBM3 rate and fp32 rate outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
@@ -881,11 +924,14 @@ def checkpoint_roundtrip(state, train_step, bufs, model_cfg, train_cfg, dev):
             raise AssertionError(f"checkpoint: {k} differs after restore")
 
 
-def train_phases(params, rows, floor_ms, dev, card):
-    """Phases 10-13; adds the training-shape numbers to the kernels' rows."""
+def train_phases(params, rows, floor_ms, dev, card, work):
+    """Phases 10-13; adds the training-shape numbers to the kernels' rows.
+    Saves the state after phase 11's steps under `work`/trained (phase 17)
+    and returns (that directory, a copy of the state dict it holds)."""
     from quber_tpu_torch.config import TrainConfig
     from quber_tpu_torch.models.mask_refiner import MaskRefinerConfig
     from quber_tpu_torch.profiling import packed_scene_pool
+    from quber_tpu_torch.train.checkpoint import save_state
 
     model_cfg = MaskRefinerConfig()
     # a warm-up of two steps: the rate is the base rate from the third step on
@@ -905,10 +951,14 @@ def train_phases(params, rows, floor_ms, dev, card):
     encode_train["floor_ms"] = stats_train["floor_ms"] = floor_ms
     by_name["encode_initial_masks_batched"]["train"] = encode_train
     by_name["instance_stats"]["train"] = stats_train
+    trained_dir = os.path.join(work, "trained")
+    save_state(trained_dir, state)
+    trained = {k: v.detach().clone() for k, v in state.model.state_dict().items()}
     checkpoint_roundtrip(state, train_step, pool.next_batch(), model_cfg, train_cfg, dev)
     del state, pool
     torch.cuda.empty_cache()
     card_against_cpu(params, dev)
+    return trained_dir, trained
 
 
 class _Recording:
@@ -985,45 +1035,68 @@ def _fg_phase(rgb_paths, depth_paths, params, card):
     return seconds
 
 
-def evaluation_phase(params, rows, card):
+def _reference():
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "quber_tpu_torch",
+                           "evaluation", "reference_synth_osd16.json")) as f:
+        return json.load(f)
+
+
+def _eval_refiner(config, params, frames, replay=False):
+    """A QuBERRefiner without the foreground filter on the card that keeps
+    each frame it reads in `frames` ({(rgb path, depth path): what
+    load_rgbd gave}), or, with `replay`, reads none and refines those."""
+    from quber_tpu_torch.evaluation.refiner_models import QuBERRefiner
+
+    class Refiner(QuBERRefiner):
+        def _load(self, rgb_path, depth_path):
+            if replay:
+                return frames[rgb_path, depth_path]
+            frames[rgb_path, depth_path] = super()._load(rgb_path, depth_path)
+            return frames[rgb_path, depth_path]
+
+    return Refiner(config, params, use_fg_filter=False, device="cuda")
+
+
+def evaluation_phase(params, rows, card, work):
     """Phase 14: the evaluation entry point on the card (run_eval per image
-    and streamed) on the first frames of the synthetic-OSD anchor."""
+    and streamed, each pass reading its frames) on the first frames of the
+    synthetic-OSD anchor, written under `work`. Returns (dataset root, the
+    per-image pass's refined masks, the frames it read, their initial
+    masks)."""
     from quber_tpu_torch.data.make_synthetic_dataset import main as make_dataset
     from quber_tpu_torch.evaluation.datasets import build_file_lists
     from quber_tpu_torch.evaluation.harness import PRINT_KEYS, masks_to_label_image, run_eval
-    from quber_tpu_torch.evaluation.refiner_models import QuBERRefiner
     from quber_tpu_torch.ops import kernels
 
     dev = torch.device("cuda", 0)
-    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "quber_tpu_torch",
-                           "evaluation", "reference_synth_osd16.json")) as f:
-        reference = json.load(f)
-    with tempfile.TemporaryDirectory() as tmp:
-        root = os.path.join(tmp, "synth_osd")
-        t0 = time.perf_counter()
-        make_dataset(["--out", root, "--n", str(EVAL_FRAMES), "--seed", "1000",
-                      "--depth-range", "250", "1500"])
-        rgb_paths, depth_paths, anno_paths = build_file_lists("OSD", root)
-        print(f"{len(rgb_paths)} frames written and listed in {time.perf_counter() - t0:.1f} s")
-        if len(rgb_paths) != EVAL_FRAMES:
-            raise AssertionError("the OSD walker did not find the frames written")
+    reference = _reference()
+    tmp = os.path.join(work, "phase14")
+    root = os.path.join(work, "synth_osd")
+    t0 = time.perf_counter()
+    make_dataset(["--out", root, "--n", str(EVAL_FRAMES), "--seed", "1000",
+                  "--depth-range", "250", "1500"])
+    rgb_paths, depth_paths, anno_paths = build_file_lists("OSD", root)
+    print(f"{len(rgb_paths)} frames written and listed in {time.perf_counter() - t0:.1f} s")
+    if len(rgb_paths) != EVAL_FRAMES:
+        raise AssertionError("the OSD walker did not find the frames written")
 
-        refiner = _Recording(QuBERRefiner(params=params, use_fg_filter=False, device="cuda"))
-        passes = {}
-        for name, batch in (("per-image", 0), ("streamed", BATCH)):
-            refiner.inner.seconds.clear()
-            refiner.initial, refiner.masks = [], []
-            os.makedirs(os.path.join(tmp, name))
-            kernels.reset_launch_counts()
-            t0 = time.perf_counter()
-            res = run_eval(base_model="perturbed-gt", refiner_model=refiner,
-                           test_dataset="OSD", dataset_path=root, refine_batch=batch,
-                           csv_path=os.path.join(tmp, name, "eval.csv"), device="cuda")
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            passes[name] = (res, _launch_counts(), list(refiner.masks), wall)
-        _check_eval_kernels(dev, refiner.initial)
-        fg_seconds = _fg_phase(rgb_paths, depth_paths, params, card)
+    frames = {}
+    refiner = _Recording(_eval_refiner(None, params, frames))
+    passes = {}
+    for name, batch in (("per-image", 0), ("streamed", BATCH)):
+        refiner.inner.seconds.clear()
+        refiner.initial, refiner.masks = [], []
+        os.makedirs(os.path.join(tmp, name))
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = run_eval(base_model="perturbed-gt", refiner_model=refiner,
+                       test_dataset="OSD", dataset_path=root, refine_batch=batch,
+                       csv_path=os.path.join(tmp, name, "eval.csv"), device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        passes[name] = (res, _launch_counts(), list(refiner.masks), wall)
+    _check_eval_kernels(dev, refiner.initial)
+    fg_seconds = _fg_phase(rgb_paths, depth_paths, params, card)
 
     (res1, launches1, masks1, wall1), (res2, launches2, masks2, wall2) = passes.values()
     print(f"evaluation per image: launches {launches1}; streamed (B={BATCH}): {launches2}")
@@ -1056,11 +1129,11 @@ def evaluation_phase(params, rows, card):
         raise AssertionError("streamed and per-image evaluation disagree")
 
     for key in ("Objects F-measure", "Boundary F-measure"):
-        for stage in ("initial", "refined"):
+        for stage, tol in (("initial", 0.0), ("refined", EVAL_REFERENCE_ATOL)):
             got, want = res1[stage][key], reference[stage][key]
             print(f"{stage} {key}: card {got:.6f}, JAX package on the CPU {want:.6f}, "
-                  f"difference {got - want:+.6f} (tolerance {EVAL_REFERENCE_ATOL})")
-            if not abs(got - want) <= EVAL_REFERENCE_ATOL:
+                  f"difference {got - want:+.6f} (tolerance {tol})")
+            if not abs(got - want) <= tol:
                 raise AssertionError(f"{stage} {key} is off the JAX package's")
 
     sec = res1["seconds"]
@@ -1075,7 +1148,350 @@ def evaluation_phase(params, rows, card):
         if name in launches1:
             row["eval"] = {"launches_per_image": launches1[name],
                            "launches_streamed": launches2[name]}
-    return res1, res2
+    return root, masks1, frames, refiner.initial
+
+
+def _stack(rng, b, n, n_valid, dev):
+    """Ellipse masks [b, n, H, W] (or [n, H, W] for b = 0) with the first
+    n_valid[i] slots valid and slot 5 empty."""
+    lead = (b,) if b else ()
+    masks = np.stack([_ellipse_masks(rng, n, H, W) for _ in range(max(b, 1))])
+    masks[:, 5] = False
+    valid = np.arange(n)[None] < np.array(n_valid).reshape(-1, 1)
+    masks, valid = masks.reshape(lead + masks.shape[1:]), valid.reshape(lead + (n,))
+    return torch.from_numpy(masks).to(dev), torch.from_numpy(valid).to(dev)
+
+
+def _encode_case(tag, masks, valid, flush):
+    """Statistics and encode kernels against their plain versions, and both
+    timed with their bounds: (stats entry, encode entry)."""
+    from quber_tpu_torch.ops import encoding, kernels
+
+    batched = masks.dim() == 4
+    _, centers, ok = _check_stats(tag, masks, valid)
+    kernel = kernels.encode_initial_masks_batched if batched else kernels.encode_initial_masks
+    plain = encoding.encode_from_stats_batched if batched else encoding.encode_from_stats
+    got, want = kernel(masks, ok, centers), plain(masks, ok, centers)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    print(f"encode {tag}, {int(ok.sum())} ok: max |kernel - plain| = {err:.3g} "
+          f"(tolerance {ENCODE_ATOL})")
+    if not err <= ENCODE_ATOL:
+        raise AssertionError(f"encode kernel disagrees with its plain version ({tag})")
+    hw, frames, slots = H * W, (masks.shape[0] if batched else 1), masks.shape[-3]
+    n_ok = int(ok.sum())
+    bound_ms, bound_by = _bound(n_ok * hw + frames * slots * 9 + frames * 3 * hw * 4,
+                                hw * n_ok * 8 + frames * hw * 20)
+    encode = {"shape": f"masks {list(masks.shape)} bool, {n_ok} ok", "max_abs_err": err,
+              "ms": _time_ms(lambda: kernel(masks, ok, centers), flush),
+              "plain_ms": _time_ms(lambda: plain(masks, ok, centers), flush),
+              "bound_ms": bound_ms, "bound_by": bound_by}
+    return {**_stats_case(masks, valid, flush), "max_abs_err": 0.0}, encode
+
+
+def _group_case(tag, k, n_valid, offsets, rng, flush):
+    from quber_tpu_torch.ops import grouping, kernels
+
+    batched = offsets.dim() == 4
+    frames = offsets.shape[0] if batched else 1
+    lead = (frames,) if batched else ()
+    cen = np.stack([rng.randint(0, H, lead + (k,)), rng.randint(0, W, lead + (k,))], -1)
+    cen = torch.from_numpy(cen.astype(np.int32)).to(offsets.device)
+    val = torch.from_numpy((np.arange(k)[None] < np.array(n_valid).reshape(-1, 1))
+                           .reshape(lead + (k,))).to(offsets.device)
+    kernel = kernels.group_pixels_batched if batched else kernels.group_pixels
+    plain = grouping.group_pixels_batched if batched else grouping.group_pixels
+    _check_group(tag, cen, val, offsets)
+    hw = H * W
+    bound_ms, bound_by = _bound(frames * 3 * hw * 4 + frames * k * 9,
+                                hw * int(val.sum()) * 6 + frames * hw * 2)
+    return {"shape": f"centers {list(cen.shape)}, {int(val.sum())} valid, offsets "
+                     f"{list(offsets.shape)}", "max_abs_err": 0.0,
+            "ms": _time_ms(lambda: kernel(cen, val, offsets), flush),
+            "plain_ms": _time_ms(lambda: plain(cen, val, offsets), flush),
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def check_serving_kernels(dev, flush):
+    """Phase 15: the kernels at the shapes of the bfloat16 serving config
+    (24 candidates, 24 slots) and of the benchmark's batches of 16. Returns
+    {kernel name: {case: entry}}."""
+    rng = np.random.RandomState(15)
+    cases = {name: {} for name in ("instance_stats", "encode_initial_masks", "group_pixels",
+                                   "encode_initial_masks_batched", "group_pixels_batched")}
+    masks, valid = _stack(rng, 0, TUNED_SLOTS, [20], dev)
+    stats, encode = _encode_case(f"N={TUNED_SLOTS} {H}x{W}", masks, valid, flush)
+    cases["instance_stats"]["n24"], cases["encode_initial_masks"]["n24"] = stats, encode
+    offsets = (torch.randn((2, H, W), generator=torch.Generator().manual_seed(15)) * 20).to(dev)
+    cases["group_pixels"]["k24"] = _group_case(f"K={TUNED_K} (no fast path)", TUNED_K, [18],
+                                               offsets, rng, flush)
+    b = BENCH_BATCH
+    for n in (TUNED_SLOTS, N_MASKS):
+        n_valid = [min(n, v) for v in (3, 8, 5, 24, 7, 0, 6, 4, 8, 3, 5, 64, 6, 7, 1, 4)]
+        masks, valid = _stack(rng, b, n, n_valid, dev)
+        stats, encode = _encode_case(f"B={b} N={n} {H}x{W}", masks, valid, flush)
+        cases["instance_stats"][f"b{b}_n{n}"] = stats
+        cases["encode_initial_masks_batched"][f"b{b}_n{n}"] = encode
+        del masks
+    offsets = (torch.randn((b, 2, H, W), generator=torch.Generator().manual_seed(16))
+               * 20).to(dev)
+    for k in (TUNED_K, 200):
+        n_valid = [min(k, v) for v in (5, 8, 3, 24, 7, 0, 6, 4, 8, 3, 5, 30, 6, 7, 1, 4)]
+        cases["group_pixels_batched"][f"b{b}_k{k}"] = _group_case(
+            f"B={b} K={k}", k, n_valid, offsets, rng, flush)
+    return cases
+
+
+def _bf16_error_ratios(got, f32, jax_err):
+    """mean |got - float32| of each output over the JAX package's own mean
+    |bfloat16 - float32| on the same frame."""
+    return {k: float((got[k] - f32[k]).abs().mean()) / e for k, e in jax_err.items()}
+
+
+def bf16_evaluation(params, root, masks_f32, frames, card):
+    """Phase 16: the 16 anchor frames (as phase 14 read them) through run_eval
+    with a bfloat16 refiner, per image; its labels against phase 14's float32
+    pass, and its forward's error against the JAX package's on two frames,
+    with two controls the error gate must refuse."""
+    from quber_tpu_torch.evaluation.harness import masks_to_label_image, run_eval
+    from quber_tpu_torch.models.layers import Conv2d
+    from quber_tpu_torch.models.mask_refiner import MaskRefinerConfig
+    from quber_tpu_torch.ops import kernels
+    from quber_tpu_torch.predictor import MaskRefinerPredictor
+
+    reference = _reference()
+    bf16 = MaskRefinerConfig(dtype="bfloat16")
+    refiner = _Recording(_eval_refiner(bf16, params, frames, replay=True))
+    csv_dir = os.path.join(os.path.dirname(root), "phase16")
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = run_eval(base_model="perturbed-gt", refiner_model=refiner, test_dataset="OSD",
+                   dataset_path=root, csv_path=os.path.join(csv_dir, "eval.csv"), device="cuda")
+    wall = time.perf_counter() - t0
+    launches = _launch_counts()
+    print(f"bfloat16 evaluation, {EVAL_FRAMES} frames per image (read in phase 14): launches "
+          f"{launches}, pass wall {wall:.2f} s, refine "
+          f"{refiner.inner.seconds['refine'] / EVAL_FRAMES:.4f} s/frame on {card}")
+    for name in ("instance_stats", "encode_initial_masks", "group_pixels"):
+        if launches[name] != EVAL_FRAMES:
+            raise AssertionError(f"bfloat16 evaluation: {name} launched {launches[name]} times")
+
+    agree, moved = [], []
+    for i, (a, b) in enumerate(zip(masks_f32, refiner.masks)):
+        la = masks_to_label_image(a, np.zeros((H, W), np.int32))
+        lb = masks_to_label_image(b, np.zeros((H, W), np.int32))
+        agree.append(float((la == lb).mean()))
+        if len(a) != len(b) or agree[-1] < BF16_AGREEMENT:
+            moved.append(i + 1)
+    print(f"bfloat16 against float32 on the card, per frame: label agreement "
+          f"{[round(a, 6) for a in agree]}, instances float32 {[len(m) for m in masks_f32]}, "
+          f"bfloat16 {[len(m) for m in refiner.masks]}; frames that moved {moved} (at most "
+          f"{BF16_MOVED_FRAMES} may: a count or < {BF16_AGREEMENT} of the labels)")
+    if len(refiner.masks) != EVAL_FRAMES or len(moved) > BF16_MOVED_FRAMES:
+        raise AssertionError("bfloat16 moved more frames off float32 than a knife edge explains")
+    for key in ("Objects F-measure", "Boundary F-measure"):
+        got, want = res["initial"][key], reference["initial"][key]
+        print(f"bfloat16 initial {key}: card {got:.6f}, JAX package on the CPU {want:.6f}, "
+              f"difference {got - want:+.6f} (tolerance 0)")
+        if got != want:
+            raise AssertionError(f"bfloat16 initial {key} is off the JAX package's")
+        got, jax16, f32 = (res["refined"][key], reference["refined_bfloat16"][key],
+                           reference["refined"][key])
+        print(f"bfloat16 refined {key}: card {got:.6f}, JAX package on the CPU in float32 "
+              f"{f32:.6f} (card {got - f32:+.6f}) and in bfloat16 {jax16:.6f} (JAX "
+              f"{jax16 - f32:+.6f}, card against it {got - jax16:+.6f}); not gated")
+
+    # the forward: its error against the JAX package's own, with two controls
+    f32_predictor = MaskRefinerPredictor(params=params, device="cuda")
+    fp16_predictor = MaskRefinerPredictor(bf16, params, device="cuda")
+    for mod in fp16_predictor.model.modules():
+        if isinstance(mod, Conv2d):
+            mod.compute_dtype = torch.float16
+    keys = list(frames)  # in run_eval's order, as refiner.initial
+    for frame, jax_err in reference["bfloat16_mean_abs_err"].items():
+        i = int(frame) - 1
+        inputs = (*frames[keys[i]][:2], refiner.initial[i])
+        f32 = f32_predictor.predict_raw(*inputs)
+        for name, predictor, passes in (("bfloat16", refiner.inner.predictor, True),
+                                        ("control: float32", f32_predictor, False),
+                                        ("control: float16", fp16_predictor, False)):
+            ratios = _bf16_error_ratios(predictor.predict_raw(*inputs), f32, jax_err)
+            inside = all(BF16_ERR_LOW <= r <= BF16_ERR_HIGH for r in ratios.values())
+            where = {True: "inside", False: "outside"}
+            print(f"frame {frame}, {name}: mean |out - float32| over the JAX package's "
+                  f"bfloat16 error {({k: round(r, 4) for k, r in ratios.items()})} "
+                  f"(gate [{BF16_ERR_LOW}, {BF16_ERR_HIGH}] on every output: "
+                  f"{where[inside]}, must be {where[passes]})")
+            if inside != passes:
+                raise AssertionError(f"frame {frame}: {name} forward "
+                                     f"{'fails' if passes else 'passes'} the bfloat16 gate")
+    return res
+
+
+def checkpoint_evaluation(trained_dir, trained, root):
+    """Phase 17: run_eval_torch.py's main on the training checkpoint against
+    run_eval on the same weights in memory."""
+    import csv
+
+    import run_eval_torch
+    from quber_tpu_torch.evaluation.harness import run_eval
+
+    out = os.path.join(os.path.dirname(root), "phase17")
+    common = dict(base_model="perturbed-gt", refiner_model="maskrefiner-nofilter",
+                  test_dataset="OSD", dataset_path=root, limit=CKPT_EVAL_FRAMES, tag="same")
+    run_eval(params=trained, csv_path=os.path.join(out, "memory", "eval.csv"),
+             device="cuda", **common)
+    rc = run_eval_torch.main(["--base-model", "perturbed-gt", "--test-dataset", "OSD",
+                              "--dataset-path", root, "--weights-file", trained_dir,
+                              "--limit", str(CKPT_EVAL_FRAMES), "--tag", "same",
+                              "--csv", os.path.join(out, "checkpoint", "eval.csv")])
+    if rc != 0:
+        raise AssertionError(f"run_eval_torch.py exited with {rc}")
+    rows, means = {}, {}
+    for name in ("memory", "checkpoint"):
+        with open(os.path.join(out, name, "eval.csv")) as f:
+            rows[name] = [{k: v for k, v in r.items() if k != "avg_ms"}
+                          for r in csv.DictReader(f)]
+        means[name] = [(r["stage"], r["Objects F-measure"], r["Boundary F-measure"])
+                       for r in rows[name]]
+    print(f"checkpoint evaluation, {CKPT_EVAL_FRAMES} frames: from the directory "
+          f"{means['checkpoint']}, in memory {means['memory']} (tolerance 0)")
+    if len(rows["memory"]) != 2 or rows["memory"] != rows["checkpoint"]:
+        raise AssertionError("the checkpoint directory evaluates unlike the state it holds")
+
+
+def _run_clis(commands, cwd):
+    """Run root scripts of the repo on the card, each in a subprocess of its
+    own, all at once: their outputs."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    procs = [subprocess.Popen([sys.executable, os.path.join(here, args[0]), *args[1:]],
+                              cwd=cwd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for args in commands]
+    try:
+        outs = [proc.communicate(timeout=600)[0] for proc in procs]
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for args, proc, out in zip(commands, procs, outs):
+        if proc.returncode != 0:
+            raise AssertionError(f"{args[0]} exited with {proc.returncode}: {out[-2000:]}")
+    return outs
+
+
+def cli_phase(params, root, frames, card):
+    """Phase 18: predict_torch.py on one written frame and demo_torch.py on
+    DEMO_FRAMES, in two subprocesses on the card at once, with the bfloat16
+    serving config (24 candidates); each frame's count held against this
+    process's predictor with the same config (on the frames phase 14 read),
+    whose single-frame and batched launches are counted. Returns both
+    counts."""
+    import glob
+    import shutil
+
+    from quber_tpu_torch.config import load_config
+    from quber_tpu_torch.evaluation.base_models import GT, PerturbedGT
+    from quber_tpu_torch.ops import kernels
+    from quber_tpu_torch.ops.preprocess import resize_nearest
+    from quber_tpu_torch.predictor import MaskRefinerPredictor
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(os.path.dirname(root), "phase18")
+    os.makedirs(work)
+    cfg_path = os.path.join(work, "serving.yaml")
+    base = os.path.join(here, "configs",
+                        "mask_refiner_rgbd_concat_l2_gn_hf_m_b_f_c_o_l3_e2_b8.yaml")
+    with open(cfg_path, "w") as f:
+        f.write(f"_BASE_: {base}\nmodel:\n  dtype: bfloat16\n  top_k_instances: {TUNED_K}\n")
+    rgb_paths = sorted(glob.glob(os.path.join(root, "image_color", "*.png")))
+    rgb_path = rgb_paths[0]
+    depth_path = rgb_path.replace("image_color", "disparity")
+    masks = PerturbedGT("OSD").predict(rgb_path, depth_path)[0]
+    np.save(os.path.join(work, "masks.npy"), masks.astype(np.uint8))
+    demo = os.path.join(work, "demo")
+    for sub in ("image_color", "disparity", "annotation"):
+        os.makedirs(os.path.join(demo, sub))
+        for p in sorted(glob.glob(os.path.join(root, sub, "*.png")))[:DEMO_FRAMES]:
+            shutil.copy(p, os.path.join(demo, sub))
+
+    t0 = time.perf_counter()
+    out, demo_out = _run_clis([
+        ["predict_torch.py", "--rgb", rgb_path, "--depth", depth_path,
+         "--masks", os.path.join(work, "masks.npy"), "--out", os.path.join(work, "refined.png"),
+         "--config-file", cfg_path],
+        ["demo_torch.py", "--input", os.path.join(demo, "image_color", "*.png"),
+         "--depth-dir", os.path.join(demo, "disparity"), "--base-model", "gt",
+         "--output", os.path.join(work, "vis"), "--config-file", cfg_path]], work)
+    cli_s = time.perf_counter() - t0
+    line = next(l for l in out.splitlines() if l.startswith("refined "))
+    cli_count = int(line.split("-> ")[1].split()[0])
+    cfg, _ = load_config(cfg_path)
+    predictor = MaskRefinerPredictor(cfg, params, device="cuda")
+    size = (cfg.height, cfg.width)
+    read = {os.path.basename(rgb): frame for (rgb, _), frame in frames.items()}
+    rgb, depth, _ = read[os.path.basename(rgb_path)]
+    kernels.reset_launch_counts()
+    result = predictor.predict(rgb, depth, [resize_nearest(m.astype(np.uint8), size)
+                                            for m in masks])[0]
+    torch.cuda.synchronize()
+    single = _launch_counts()
+    count = len(result.get("instances", {}).get("scores", []))
+    print(f"predict_torch.py (subprocess): '{line}'; the predictor here "
+          f"{count} instances, launches {single}")
+    if cli_count != count or not count:
+        raise AssertionError("predict_torch.py and the predictor disagree")
+    if any(single[n] != 1 for n in ("instance_stats", "encode_initial_masks", "group_pixels")):
+        raise AssertionError("the single-frame path did not launch each kernel once")
+
+    cli_counts = [int(l.split(": ")[1].split()[0]) for l in demo_out.splitlines()
+                  if " instances -> " in l]
+    items = []
+    for p in rgb_paths[:DEMO_FRAMES]:
+        d = p.replace("image_color", "disparity")
+        items.append((*read[os.path.basename(p)][:2], list(GT("OSD").predict(p, d)[0])))
+    kernels.reset_launch_counts()
+    counts = [c for _, c, _ in predictor.predict_batch_stream(iter(items), batch_size=4)]
+    batched = _launch_counts()
+    print(f"demo_torch.py (subprocess): counts {cli_counts}; the predictor's stream here "
+          f"{counts}, launches {batched}; both CLIs ran at once, {cli_s:.1f} s on {card}")
+    if cli_counts != counts or len(counts) != DEMO_FRAMES:
+        raise AssertionError("demo_torch.py and the predictor disagree")
+    _check_launches("demo stream (B=4)", batched, 1)
+    return single, batched
+
+
+def bench_phase(frames, initial):
+    """Phase 19: bench_torch.py shortened, its JSON line on a line of its
+    own, on the frames phase 14 read (each twice) with their initial masks."""
+    import bench_torch
+    from quber_tpu_torch.ops import kernels
+
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    scenes = [(rgb, depth[..., 0], [np.asarray(m) > 0 for m in masks])
+              for (rgb, depth, _), masks in zip(frames.values(), initial)]
+    scenes = (scenes * -(-BENCH_FRAMES // len(scenes)))[:BENCH_FRAMES]
+    line = bench_torch.run(BENCH_FRAMES, trials=1, frames=scenes)
+    launches = _launch_counts()
+    print(json.dumps(line))
+    print(f"bench_torch ({BENCH_FRAMES} frames, one pass a configuration): "
+          f"{time.perf_counter() - t0:.1f} s, launches {launches}")
+    rates = [line[k] for k in ("value", "fps_default_config", "fps_k200_n24", "fps_k24_n64",
+                               "fps_float32", "streaming_fps")]
+    if not all(np.isfinite(r) and r > 0 for r in rates) or not line["flops_forward"] > 0:
+        raise AssertionError("bench_torch reported a rate that is not positive")
+    for name in ("instance_stats", "encode_initial_masks_batched", "group_pixels_batched"):
+        if not launches[name]:
+            raise AssertionError(f"bench_torch did not launch {name}")
+    return launches
+
+
+_T0 = time.perf_counter()
+
+
+def _elapsed(what):
+    print(f"[{time.perf_counter() - _T0:.1f} s] {what} done", flush=True)
 
 
 def main() -> int:
@@ -1129,9 +1545,39 @@ def main() -> int:
     for row in rows:
         row["floor_ms"] = floor_ms
     multiscale(params)
-    train_phases(params, rows, floor_ms, dev, card)
+    _elapsed("phases 1-9")
+    with tempfile.TemporaryDirectory() as work:
+        trained_dir, trained = train_phases(params, rows, floor_ms, dev, card, work)
+        torch.cuda.empty_cache()
+        _elapsed("phases 10-13")
+        root, masks_f32, frames, initial = evaluation_phase(params, rows, card, work)
+        _elapsed("phase 14")
+        flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+        serving_cases = check_serving_kernels(dev, flush)
+        del flush
+        _elapsed("phase 15")
+        bf16_evaluation(params, root, masks_f32, frames, card)
+        _elapsed("phase 16")
+        checkpoint_evaluation(trained_dir, trained, root)
+        del trained
+        _elapsed("phase 17")
+        single, batched = cli_phase(params, root, frames, card)
+        _elapsed("phase 18")
     torch.cuda.empty_cache()
-    evaluation_phase(params, rows, card)
+    bench_launches = bench_phase(frames, initial)
+    _elapsed("phase 19")
+    # the serving shapes' entries: launches on the single-frame CLI path
+    # (predict, K = 24) and on the benchmark's batches of 16
+    for row in rows:
+        entries = serving_cases.get(row["name"], {})
+        for case, entry in entries.items():
+            single_frame = not case.startswith("b")
+            entry["launches"] = (single if single_frame else bench_launches)[row["name"]]
+            entry["path"] = "predict_torch config, predict()" if single_frame else \
+                f"bench_torch, {BENCH_FRAMES} frames in batches of {BENCH_BATCH}"
+            entry["floor_ms"] = floor_ms
+        if entries:
+            row["serving"] = entries
 
     steady = times[1:]
     med = statistics.median(steady)

@@ -15,6 +15,9 @@ checkpoints), driven by `train_net_torch.py`; and evaluation over benchmark
 datasets (`evaluation/`: walkers, base models, the refiner wrapper with the
 CGNet / LMFFNet foreground filter, metrics, harness), driven by
 `run_eval_torch.py`, with PNG files, resizes and Telea inpainting in numpy
-in place of OpenCV and imageio (`data/png.py`, `ops/preprocess.py`). The
-training tensors (batch, targets, losses) are channels first.
+in place of OpenCV and imageio (`data/png.py`, `ops/preprocess.py`); the
+forward in float32 or bfloat16 (`models/`); and the serving benchmark and
+the single-image and demo CLIs (`bench_torch.py`, `predict_torch.py`,
+`demo_torch.py`). The training tensors (batch, targets, losses) are channels
+first.
 """

@@ -20,7 +20,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from quber_tpu_torch.models.layers import BatchNorm, FrozenBatchNorm
+from quber_tpu_torch.models.layers import BatchNorm, FrozenBatchNorm, GroupNorm
 
 _NORM_SCOPES = {"GroupNorm_0", "BatchNorm_0", "FrozenBatchNorm_0"}
 
@@ -75,8 +75,17 @@ def state_dict_from_jax(tree: dict) -> dict:
     return out
 
 
+def as_state_dict(params: dict) -> dict:
+    """Weights as train.checkpoint.load_eval_params returns them -> a torch
+    state dict: a state dict (flat, tensor values) as it is, a flax-layout
+    tree through state_dict_from_jax."""
+    if params and all(isinstance(v, torch.Tensor) for v in params.values()):
+        return params
+    return state_dict_from_jax(params)
+
+
 _TO_JAX = {
-    nn.GroupNorm: ("GroupNorm_0", {"weight": "scale", "bias": "bias"}),
+    GroupNorm: ("GroupNorm_0", {"weight": "scale", "bias": "bias"}),
     BatchNorm: ("BatchNorm_0", {"weight": "scale", "bias": "bias",
                                 "running_mean": "mean", "running_var": "var"}),
     FrozenBatchNorm: ("FrozenBatchNorm_0", {

@@ -9,6 +9,8 @@ Port of quber_tpu/models/heads.py (torch, NCHW):
     level's head features, previous level's softmax/sigmoid predictions]
     and runs FusionLayers, whose norm is BatchNorm (batch statistics in
     training mode, running statistics in eval mode).
+In bfloat16 the predictors return bfloat16 and the features float32 (their
+norms do), so the concatenation promotes to float32, as jnp.concatenate does.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from torch import nn
 
 from quber_tpu_torch.models.layers import (
     ASPP,
+    Conv2d,
     ConvNorm,
     DepthwiseSeparableConv,
     upsample_bilinear,
@@ -181,7 +184,7 @@ class InsEmbedHead(nn.Module):
         def add_head(name, src_ch):
             self.add_module(f"{name}_head", SinglePredictionHead(
                 src_ch, head_channels, norm, head_depthwise_separable))
-            self.add_module(f"{name}_predictor", nn.Conv2d(
+            self.add_module(f"{name}_predictor", Conv2d(
                 head_channels, head_out_channels(name, error_type), 1, bias=True))
 
         if not hierarchical_fusion_on:

@@ -8,6 +8,13 @@ onto a state dict by renaming alone. A module's `training` flag is the flax
 and dropout is off; in training mode BatchNorm normalises with the batch's
 statistics and updates the running ones, and the ASPP dropout draws its mask
 from an explicit generator. FrozenBatchNorm is the same in both modes.
+
+Compute type, as flax's modules treat it: a Conv2d casts its input, kernel
+and bias to its `compute_dtype` (float32 unless the model sets bfloat16) and
+returns that type; FrozenBatchNorm computes its scale and shift in float32
+and applies them in the input's type; GroupNorm and BatchNorm, which have no
+compute type in the reference, normalise in float32 and return float32.
+Parameters stay float32 throughout.
 """
 
 from __future__ import annotations
@@ -29,6 +36,31 @@ def upsample_bilinear(x: torch.Tensor, scale: int | None = None,
     return F.interpolate(x, size=tuple(size), mode="bilinear", align_corners=False)
 
 
+class Conv2d(nn.Conv2d):
+    """nn.Conv2d computing in `compute_dtype`, like flax's nn.Conv(dtype=...):
+    input, kernel and bias are cast to it, and so is the output. Below
+    float32 the bias is added to the rounded convolution, as flax adds it
+    (oneDNN would fuse it into one rounding)."""
+
+    compute_dtype = torch.float32
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        if dt == torch.float32 or self.bias is None:
+            bias = None if self.bias is None else self.bias.to(dt)
+            return self._conv_forward(x.to(dt), self.weight.to(dt), bias)
+        y = self._conv_forward(x.to(dt), self.weight.to(dt), None)
+        return y + self.bias.to(dt)[:, None, None]
+
+
+class GroupNorm(nn.GroupNorm):
+    """flax nn.GroupNorm without a dtype: statistics and output in float32,
+    whatever the input's type."""
+
+    def forward(self, x):
+        return F.group_norm(x.float(), self.num_groups, self.weight, self.bias, self.eps)
+
+
 class FrozenBatchNorm(nn.Module):
     """detectron2 FrozenBN: y = x * scale + shift with scale = w / sqrt(var + eps)
     and shift = b - mean * scale, all four tensors fixed buffers."""
@@ -44,7 +76,7 @@ class FrozenBatchNorm(nn.Module):
     def forward(self, x):
         scale = self.weight * torch.rsqrt(self.running_var + self.eps)
         shift = self.bias - self.running_mean * scale
-        return x * scale[:, None, None] + shift[:, None, None]
+        return x * scale.to(x.dtype)[:, None, None] + shift.to(x.dtype)[:, None, None]
 
 
 class BatchNorm(nn.Module):
@@ -66,6 +98,7 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(channels))
 
     def forward(self, x):
+        x = x.float()
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
                                 self.bias, training=False, eps=self.eps)
@@ -87,7 +120,7 @@ def make_norm(norm: str, channels: int) -> nn.Module | None:
     if norm == "" or norm is None:
         return None
     if norm == "GN":
-        return nn.GroupNorm(32, channels, eps=1e-5)
+        return GroupNorm(32, channels, eps=1e-5)
     if norm in ("BN", "SyncBN"):
         return BatchNorm(channels)
     if norm == "FrozenBN":
@@ -105,9 +138,8 @@ class ConvNorm(nn.Module):
                  act: Callable | None = None):
         super().__init__()
         pad = ((kernel_size - 1) // 2) * dilation
-        self.conv = nn.Conv2d(in_channels, features, kernel_size, stride=strides,
-                              padding=pad, dilation=dilation, groups=groups,
-                              bias=use_bias)
+        self.conv = Conv2d(in_channels, features, kernel_size, stride=strides,
+                           padding=pad, dilation=dilation, groups=groups, bias=use_bias)
         self.norm = make_norm(norm, features)
         self.act = act
 

@@ -3,8 +3,12 @@
 
 Port of quber_tpu/models/mask_refiner.py. Defaults correspond to the
 flagship config `mask_refiner_rgbd_concat_l2_gn_hf_m_b_f_c_o_l3_e2_b8.yaml`.
-The forward runs in float32. The losses keep the reference's channel order
-with the channel axis moved to dim 1.
+The forward runs in the config's `dtype`: float32 (the default), or
+bfloat16 with float32 parameters, cast where the reference casts (the input
+standardised in float32, then every convolution in bfloat16, the norms'
+outputs in float32; models/layers.py), and the outputs cast to float32
+before the x4 upsample. The losses keep the reference's channel order with
+the channel axis moved to dim 1.
 """
 
 from __future__ import annotations
@@ -17,7 +21,7 @@ import torch
 from torch import nn
 
 from quber_tpu_torch.models.heads import ERROR_TYPE_CHANNELS, InsEmbedHead
-from quber_tpu_torch.models.layers import ASPP, upsample_bilinear
+from quber_tpu_torch.models.layers import ASPP, Conv2d, upsample_bilinear
 from quber_tpu_torch.models.resnet import RGBDFusionBackbone
 
 
@@ -112,8 +116,8 @@ class MaskRefiner(nn.Module):
         cfg = config
         if not (cfg.rgb_on and cfg.depth_on):
             raise NotImplementedError("single-modality backbones are not ported yet")
-        if cfg.dtype != "float32":
-            raise NotImplementedError("the port's forward runs in float32 only")
+        if cfg.dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"dtype {cfg.dtype}: float32 or bfloat16")
         self.config = cfg
         self.register_buffer("pixel_mean", torch.tensor(cfg.pixel_mean, dtype=torch.float32)
                              .view(-1, 1, 1), persistent=False)
@@ -144,6 +148,9 @@ class MaskRefiner(nn.Module):
             head_depthwise_separable=cfg.head_depthwise_separable,
             aspp_dropout=cfg.aspp_dropout,
         )
+        for mod in self.modules():
+            if isinstance(mod, Conv2d):
+                mod.compute_dtype = cfg.compute_dtype
 
     def set_dropout_generator(self, generator: torch.Generator | None) -> None:
         """The generator (on the model's device) that training-mode dropout
@@ -177,7 +184,8 @@ class MaskRefiner(nn.Module):
             if offset_enc is None:
                 raise ValueError("offset_input_on needs offset_enc")
             x = torch.cat([x, offset_enc.float()], dim=1)
-        outputs = self.ins_embed_head(self.backbone(x))
+        outputs = self.ins_embed_head(self.backbone(x.to(self.config.compute_dtype)))
+        outputs = {k: v.float() for k, v in outputs.items()}
         if not full_res:
             return outputs
         return upsample_outputs(outputs, self.config.common_stride)

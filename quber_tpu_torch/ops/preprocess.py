@@ -6,10 +6,10 @@ OpenCV; the port has no OpenCV, so this module carries its own copies:
   * `resize_nearest` is `cv2.resize(..., interpolation=INTER_NEAREST)`: the
     source index of output pixel x is floor(x / (out / in)), clamped;
   * `resize_linear` is `cv2.resize`'s default INTER_LINEAR (half-pixel
-    centres, edge clamping, no antialiasing) computed in float64 and rounded
-    half up for integer images; OpenCV interpolates uint8 in fixed point, so
-    the two may differ by one grey level (they are equal where each output
-    pixel falls on a source pixel, as at integer downscales);
+    centres, edge clamping, no antialiasing): bit for bit OpenCV's
+    fixed-point path for uint8 images (11-bit weights, a horizontal pass
+    into integers, a vertical pass with its rounding shifts, and the switch
+    to INTER_AREA at an exact 2x downscale), float64 for other types;
   * `inpaint_telea` is `cv2.inpaint(..., INPAINT_TELEA)`: A. Telea, "An
     Image Inpainting Technique Based on the Fast Marching Method" (2004), as
     OpenCV's photo/src/inpaint.cpp implements it, with its float32
@@ -76,13 +76,58 @@ def _linear_taps(n_in: int, n_out: int):
     return lo, hi, frac
 
 
+_COEF_BITS = 11  # OpenCV's INTER_RESIZE_COEF_BITS
+
+
+def _fixed_taps(n_in: int, n_out: int, clamp: bool):
+    """OpenCV's uint8 INTER_LINEAR taps along one axis (imgproc resize.cpp):
+    the source position in float32 from scale = 1 / (n_out / n_in), its
+    floor, and the two weights as 11-bit integers rounded half to even. The
+    horizontal axis clamps the position into the image (`clamp`); the
+    vertical one keeps it and clamps the rows it reads."""
+    f = ((np.arange(n_out) + 0.5) * (1.0 / (n_out / n_in)) - 0.5).astype(np.float32)
+    lo = np.floor(f).astype(np.int64)
+    f = f - lo.astype(np.float32)
+    if clamp:
+        edge = (lo < 0) | (lo >= n_in - 1)
+        f = np.where(edge, np.float32(0), f)
+        lo = np.clip(lo, 0, n_in - 1)
+    one = np.float32(1 << _COEF_BITS)
+    w0 = np.rint((np.float32(1) - f) * one).astype(np.int64)
+    w1 = np.rint(f * one).astype(np.int64)
+    return np.clip(lo, 0, n_in - 1), np.clip(lo + 1, 0, n_in - 1), w0, w1
+
+
+def _resize_linear_u8(img: np.ndarray, h: int, w: int) -> np.ndarray:
+    """cv2.resize(img, (w, h)) for uint8 [H, W] or [H, W, C]."""
+    x = img.astype(np.int64)
+    if img.shape[0] == 2 * h and img.shape[1] == 2 * w:
+        # cv2.resize takes INTER_AREA for an exact 2x downscale: the rounded
+        # mean of each 2x2 block
+        return ((x[0::2, 0::2] + x[0::2, 1::2] + x[1::2, 0::2] + x[1::2, 1::2] + 2) >> 2
+                ).astype(np.uint8)
+    lo, hi, w0, w1 = _fixed_taps(img.shape[1], w, clamp=True)
+    shape = (1, -1) + (1,) * (x.ndim - 2)
+    rows = x[:, lo] * w0.reshape(shape) + x[:, hi] * w1.reshape(shape)  # 22-bit sums
+    lo, hi, w0, w1 = _fixed_taps(img.shape[0], h, clamp=False)
+    shape = (-1,) + (1,) * (x.ndim - 1)
+    # the vertical pass of OpenCV's VResizeLinear for uint8: each row >> 4
+    # to int16, each product's high 16 bits, the sum rounded off by 2 bits
+    out = (((rows[lo] >> 4) * w0.reshape(shape)) >> 16) + \
+        (((rows[hi] >> 4) * w1.reshape(shape)) >> 16)
+    return np.clip((out + 2) >> 2, 0, 255).astype(np.uint8)
+
+
 def resize_linear(img: np.ndarray, size: tuple[int, int]) -> np.ndarray:
     """img [H, W, ...] -> [h, w, ...] at size = (h, w), bilinear as
-    cv2.INTER_LINEAR; integer images are rounded and clipped to their type."""
+    cv2.INTER_LINEAR: uint8 exactly as OpenCV computes it, other integer
+    images in float64 rounded and clipped to their type, floats in float64."""
     img = np.asarray(img)
     h, w = size
     if img.shape[:2] == (h, w):
         return img.copy()
+    if img.dtype == np.uint8:
+        return _resize_linear_u8(img, h, w)
     x = img.astype(np.float64)
     lo, hi, a = _linear_taps(img.shape[0], h)
     a = a.reshape((-1,) + (1,) * (x.ndim - 1))

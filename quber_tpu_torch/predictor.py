@@ -44,7 +44,7 @@ import torch
 import torch.nn.functional as F
 
 from quber_tpu_torch.data.mappers import bucket_shape, resize, resize_shortest_edge
-from quber_tpu_torch.models.from_jax import state_dict_from_jax
+from quber_tpu_torch.models.from_jax import as_state_dict
 from quber_tpu_torch.models.mask_refiner import MaskRefiner, MaskRefinerConfig
 from quber_tpu_torch.ops import kernels
 from quber_tpu_torch.ops.grouping import find_instance_centers_batched, merge_and_score
@@ -86,9 +86,10 @@ class MaskRefinerPredictor:
 
     Args:
       config: model + post-processing configuration (default: flagship).
-      params: flax-layout variable tree of numpy arrays (as
-        train.checkpoint.load_default_params returns it), carried across
-        with models.from_jax; None random-initialises from `seed`.
+      params: flax-layout variable tree of numpy arrays, carried across
+        with models.from_jax, or a torch state dict (either as
+        train.checkpoint.load_eval_params returns it); None
+        random-initialises from `seed`.
       max_instances: the most initial masks a frame may hand in.
       device: "cuda" (default) or "cpu".
 
@@ -113,7 +114,7 @@ class MaskRefinerPredictor:
         if params is None:
             model.reset_parameters(torch.Generator().manual_seed(seed))
         else:
-            model.load_state_dict(state_dict_from_jax(params), strict=True)
+            model.load_state_dict(as_state_dict(params), strict=True)
         self.model = model.to(self.device).eval()
 
     def _encode(self, masks, valid):

@@ -155,17 +155,42 @@ def load_quantized_params(path: str) -> dict:
     return tree
 
 
+def load_eval_params(path: str):
+    """Predictor-ready weights from any of the port's checkpoint flavours
+    (the JAX package's `load_eval_params`):
+      * a path ending in .npz: the int8 archive (`save_quantized_params`),
+        as the flax-layout tree;
+      * a training checkpoint directory (`save_state`): the module's state
+        dict of its newest finished step;
+      * a `save_params` directory: the dict it holds (a flax-layout tree).
+    MaskRefinerPredictor takes either form. An orbax directory written by
+    the JAX package cannot be read here (the card's machine has no orbax):
+    convert it first with the JAX package's `save_quantized_params`."""
+    if path.endswith(".npz"):
+        return load_quantized_params(path)
+    payload = _load_latest(path, None)
+    if payload is None:
+        orbax = os.path.isdir(path) and any(
+            os.path.exists(os.path.join(path, name, "_CHECKPOINT_METADATA"))
+            for name in os.listdir(path))
+        if orbax:
+            raise NotImplementedError(
+                f"{path} is an orbax checkpoint of the JAX package; convert it to an int8 "
+                "archive with quber_tpu.train.checkpoint.save_quantized_params "
+                "(where orbax is installed) and pass the .npz")
+        raise FileNotFoundError(f"no finished checkpoint under {path}")
+    if "model" in payload:  # save_state
+        return payload["model"]
+    return _map_leaves(payload["params"], lambda t: t.numpy())
+
+
 def load_default_params(path: str | None = None):
     """Resolve predictor weights as the CLIs do: an explicit path wins, then
-    $QUBER_WEIGHTS, then the in-repo int8 artifact
-    (weights/flagship_synth_int8.npz), else None (random init). Only the int8
-    npz format is read here; a trained state becomes one through
-    models.from_jax.state_dict_to_jax and save_quantized_params."""
+    $QUBER_WEIGHTS (either through load_eval_params), then the in-repo int8
+    artifact (weights/flagship_synth_int8.npz), else None (random init)."""
     path = path or os.environ.get("QUBER_WEIGHTS")
     if path:
-        if not path.endswith(".npz"):
-            raise NotImplementedError(f"the port reads only int8 .npz weights: {path}")
-        return load_quantized_params(path)
+        return load_eval_params(path)
     if os.path.exists(_BUNDLED):
         return load_quantized_params(_BUNDLED)
     return None

@@ -37,7 +37,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                         help="cpu is for tests")
     parser.add_argument("--weights-file", default=None,
-                        help="int8 .npz weights (random init if omitted)")
+                        help="int8 .npz weights or a checkpoint directory of "
+                             "train_net_torch.py (random init if omitted)")
     parser.add_argument("--npy-folder", default="")
     parser.add_argument("--limit", type=int, default=None)
     parser.add_argument("--refine-batch", type=int, default=0,
@@ -68,7 +69,7 @@ def main(argv=None):
 
     from quber_tpu_torch.config import load_config
     from quber_tpu_torch.evaluation.harness import run_eval
-    from quber_tpu_torch.train.checkpoint import load_default_params
+    from quber_tpu_torch.train.checkpoint import load_eval_params
 
     with open(args.config_file) as f:
         native = args.config_file.startswith("configs/") or "model:" in f.read()
@@ -77,7 +78,7 @@ def main(argv=None):
                                   "item 11b")
     model_cfg, _ = load_config(args.config_file)
 
-    params = load_default_params(args.weights_file) if args.weights_file else None
+    params = load_eval_params(args.weights_file) if args.weights_file else None
 
     refiner_name = args.refiner_model
     if refiner_name == "maskrefiner" and not args.use_cgnet:

@@ -3,12 +3,12 @@ writer, annotation loading, the GT and perturbed-GT base models, the QuBER
 refiner wrapper (per image and streamed) and run_eval, on small temporary
 datasets written by both packages' generators.
 
-Tolerances: walkers, written arrays, annotations and GT masks exact;
-PerturbedGT the same mask count and IoU >= 0.98 per mask (the port draws
-its false-positive ellipse analytically, not with cv2.ellipse); refined
-frames the same instance count and >= 99.5% of the labels (the model runs
-on the same inputs up to the bilinear resize to the model's size, within
-one grey level of OpenCV's); run_eval aggregates within 0.01.
+Tolerances: walkers, written arrays, annotations, GT and PerturbedGT masks
+exact (the false-positive ellipse is cv2.ellipse's rasterisation); refined
+frames the same instance count and >= 99.5% of the labels (the same inputs,
+the bilinear resize to the model's size being OpenCV's bit for bit; the
+two frameworks' float32 convolutions sum in different orders); run_eval's
+initial-stage aggregates exact, the refined ones within 0.01.
 """
 
 import csv
@@ -117,8 +117,7 @@ def test_perturbed_gt_matches_jax(osd6):
         got, _, _ = tb.predict(r, d)
         want, _, _ = jb.predict(r, d)
         assert len(got) == len(want)
-        for g, w in zip(got > 0, want > 0):
-            assert (g & w).sum() / max((g | w).sum(), 1) >= 0.98
+        assert np.array_equal(got > 0, want > 0)
 
 
 @pytest.fixture(scope="module")
@@ -259,10 +258,10 @@ def test_run_eval_matches_jax(case, refiners, osd6, trees, tmp_path):
     (tmp_path / "t").mkdir()
     want = _run(jharness, jr, root, dataset, base, str(tmp_path / "j" / "x.csv"), batch)
     got = _run(tharness, tr, root, dataset, base, str(tmp_path / "t" / "x.csv"), batch)
-    for stage in ("initial", "refined"):
+    for stage, tol in (("initial", 0.0), ("refined", 0.01)):
         assert got[stage].keys() == want[stage].keys()
         for k, v in want[stage].items():
-            assert abs(got[stage][k] - v) <= 0.01, (stage, k, got[stage][k], v)
+            assert abs(got[stage][k] - v) <= tol, (stage, k, got[stage][k], v)
     rows = [list(csv.DictReader(open(tmp_path / d / "x.csv"))) for d in ("j", "t")]
     assert list(rows[0][0]) == list(rows[1][0]) and len(rows[1]) == 2
     assert [r["tag"] for r in rows[1]] == [r["tag"] for r in rows[0]]

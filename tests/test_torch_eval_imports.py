@@ -1,7 +1,8 @@
 """The port needs none of OpenCV, imageio, Pillow, JAX or the JAX package:
 a fresh interpreter in which importing any of them fails imports every
-module of quber_tpu_torch and the port's scripts, and runs run_eval on one
-small frame on the CPU (the foreground filter included)."""
+module of quber_tpu_torch and the port's scripts, and runs run_eval (the
+foreground filter included), predict_torch.py and demo_torch.py on one small
+frame on the CPU."""
 
 import os
 import subprocess
@@ -19,7 +20,8 @@ SCRIPT = textwrap.dedent("""
     torch.set_num_threads(2)
     import quber_tpu_torch
     names = [m.name for m in pkgutil.walk_packages(quber_tpu_torch.__path__, "quber_tpu_torch.")]
-    for name in names + ["run_eval_torch", "train_net_torch", "chip_smoke"]:
+    for name in names + ["run_eval_torch", "train_net_torch", "chip_smoke", "bench_torch",
+                         "predict_torch", "demo_torch"]:
         importlib.import_module(name)
 
     from quber_tpu_torch.data.make_synthetic_dataset import main as make_dataset
@@ -32,8 +34,24 @@ SCRIPT = textwrap.dedent("""
         res = run_eval(base_model="perturbed-gt", refiner_model="maskrefiner",
                        dataset_path=tmp + "/osd", config=cfg, csv_path=tmp + "/x.csv",
                        device="cpu")
-    assert set(res) >= {"initial", "refined", "seconds"}, res
-    assert res["seconds"]["fg"] > 0
+        assert set(res) >= {"initial", "refined", "seconds"}, res
+        assert res["seconds"]["fg"] > 0
+
+        import numpy as np
+        import demo_torch
+        import predict_torch
+        from quber_tpu_torch.evaluation.base_models import GT
+
+        rgb = tmp + "/osd/image_color/synth_00000.png"
+        depth = rgb.replace("image_color", "disparity")
+        np.save(tmp + "/masks.npy", GT("OSD").predict(rgb, depth)[0])
+        with open(tmp + "/small.yaml", "w") as f:  # the int8 weights at 96x128
+            f.write("model:\\n  height: 96\\n  width: 128\\n")
+        common = ["--config-file", tmp + "/small.yaml", "--device", "cpu"]
+        assert predict_torch.main(["--rgb", rgb, "--depth", depth, "--masks",
+                                   tmp + "/masks.npy", "--out", tmp + "/p.png"] + common) == 0
+        assert demo_torch.main(["--input", rgb, "--depth-dir", tmp + "/osd/disparity",
+                                "--output", tmp + "/vis"] + common) == 0
     bad = [m for m in ("cv2", "imageio", "PIL", "jax", "quber_tpu") if sys.modules.get(m)]
     assert not bad, bad
     print("OK", len(names))

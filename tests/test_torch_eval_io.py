@@ -2,9 +2,8 @@
 they replace: data/png.py against imageio and cv2.imread, and
 ops/preprocess.py against the JAX package's host functions and OpenCV.
 
-Tolerances: PNG decoding, nearest resizing, depth normalisation and Telea
-inpainting exact; the bilinear resize within one grey level (OpenCV
-interpolates uint8 in fixed point, the port in float64).
+Tolerances: PNG decoding, nearest and bilinear resizing (OpenCV's uint8
+fixed point), depth normalisation and Telea inpainting exact.
 """
 
 import struct
@@ -151,7 +150,7 @@ def test_resize_linear_within_one_level_of_cv2(src, dst):
         want = cv2.resize(img, dst[::-1])
         got = tpre.resize_linear(img, dst)
         assert got.shape == want.shape and got.dtype == np.uint8
-        assert np.abs(got.astype(int) - want.astype(int)).max() <= 1
+        assert np.array_equal(got, want)
 
 
 def test_normalize_and_standardize_match_jax():

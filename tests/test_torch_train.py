@@ -582,7 +582,7 @@ def test_train_net_torch_routes_see_the_same_losses(scratch, capsys):
     (["--workers", "2"], "item 11b"),
     (["--space", "2"], "item 12"),
     (["--multihost"], "item 12"),
-    (["--eval-dataset", "OSD"], "item 8"),
+    (["--multihost", "--space", "2"], "item 12"),
     ([], "item 11b"),  # without --synthetic there is nothing to train on
 ])
 def test_train_net_torch_cli_names_what_waits(flags, item):

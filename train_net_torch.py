@@ -9,11 +9,15 @@ rendered synthetic scenes, checkpoints under <output-dir>/ckpt. With
 --device-targets the host only bitpacks the masks and the device rebuilds
 every target inside the step; the packed scenes then live on the device and
 each batch is gathered there by a shuffled index (--no-data-device-cache
-feeds them from the host instead). Runs on the GPU unless --device cpu.
+feeds them from the host instead). With --eval-dataset, every eval_period
+steps the current weights are evaluated on --eval-limit frames of that
+dataset (perturbed GT refined without the foreground filter, run_eval_torch's
+harness) and the row goes into <output-dir>/eval.csv tagged train-eval@<it>.
+Runs on the GPU unless --device cpu.
 
 Not ported yet (each exits with a message naming its item in ROADMAP.md):
-training on datasets on disk (--dataset), --workers, --space, --multihost
-and the periodic evaluation (--eval-dataset).
+training on datasets on disk (--dataset), --workers, --space and
+--multihost.
 """
 
 import argparse
@@ -27,8 +31,6 @@ _WAITING = {
     "workers": "Queue 1 item 11b (worker processes for the file-backed loader)",
     "space": "Queue 1 item 12 (data parallel and spatial partitioning)",
     "multihost": "Queue 1 item 12 (data parallel)",
-    "eval_dataset": "Queue 1 item 8 (the evaluation seam)",
-    "eval_dataset_path": "Queue 1 item 8 (the evaluation seam)",
 }
 
 
@@ -91,8 +93,10 @@ def main(argv=None):
     parser.add_argument("--workers", type=int, default=0)
     parser.add_argument("--space", type=int, default=1)
     parser.add_argument("--multihost", action="store_true")
-    parser.add_argument("--eval-dataset", default=None)
+    parser.add_argument("--eval-dataset", default=None,
+                        help="evaluate every eval_period steps on this dataset (e.g. OSD)")
     parser.add_argument("--eval-dataset-path", default=None)
+    parser.add_argument("--eval-limit", type=int, default=20)
     args = parser.parse_args(argv)
 
     for flag, item in _WAITING.items():
@@ -128,6 +132,7 @@ def main(argv=None):
         train_cfg = dataclasses.replace(train_cfg, max_iter=args.max_iter)
     if args.checkpoint_period:
         train_cfg = dataclasses.replace(train_cfg, checkpoint_period=args.checkpoint_period)
+
     if args.depth_range:
         train_cfg = dataclasses.replace(train_cfg, depth_range=tuple(args.depth_range))
     output_dir = args.output_dir or os.path.join(
@@ -183,6 +188,17 @@ def main(argv=None):
         if (it + 1) % train_cfg.checkpoint_period == 0 or it + 1 == train_cfg.max_iter:
             save_state(ckpt_dir, state)
             print(f"checkpoint saved at {it + 1}")
+        if args.eval_dataset and (it + 1) % train_cfg.eval_period == 0:
+            from quber_tpu_torch.evaluation.harness import run_eval
+
+            # a predictor of its own from a copy of the weights: the trainer's
+            # module, its BatchNorm statistics and its dropout generator are
+            # left as they are
+            run_eval(base_model="perturbed-gt", refiner_model="maskrefiner-nofilter",
+                     test_dataset=args.eval_dataset, dataset_path=args.eval_dataset_path,
+                     config=model_cfg, params=state.model.state_dict(),
+                     limit=args.eval_limit, csv_path=os.path.join(output_dir, "eval.csv"),
+                     tag=f"train-eval@{it + 1}", device=device)
 
 
 if __name__ == "__main__":
