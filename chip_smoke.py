@@ -108,8 +108,32 @@ Phases (any failure ends the run with a non-zero exit code):
  19. bench_torch.py at 32 frames (phase 14's 16 frames twice), one pass of
      each configuration: its JSON line, and the launches of the batched
      kernels at B = 16;
- 20. print a JSON line of the kernels' numbers, the frame time, and as the
-     last line {"ok": true, "device": {...}}.
+ 20. the ablation variants at full width (480x640, float32, TF32 off):
+     nohf, noeee, rgbd_add_l3, rgb_only, depth only and the
+     Panoptic-DeepLab config as MaskRefiners, and the PanopticDeepLab
+     module, each from one seeded init (the flagship beside them as the
+     control), on the first frame of phase 14 on the card and on the CPU:
+     every output's max |card - CPU| within ABLATION_RTOL of its max |CPU|;
+     each MaskRefiner variant once through predict() on the card with one
+     statistics, encode and group launch; one rgb_only train step card
+     against CPU as in phase 12;
+ 21. UCN: (a) train_zoo_torch's steps at 480x640 on a pool of two rendered
+     scenes, card against CPU from the same init (losses rtol 1e-3, first
+     gradients cosine >= 0.999, weights and BatchNorm statistics within 2.1
+     learning rates a step), then 40 more steps on the card (ms a step,
+     peak memory), the weights saved as train_zoo_torch saves them;
+     (b) cluster_embeddings on the card and the CPU on the card's
+     embeddings of phase 14's 16 frames: the same instance count and
+     >= 99.5% of the labels on every frame, the frames below 100% listed;
+     (c) those frames through run_eval with base model "ucn" (the weights
+     through $QUBER_UCN_CKPT) and the flagship int8 refiner, per image (one
+     statistics, encode and group launch a frame) and streamed at B = 8
+     (one batched launch a batch): the base masks equal, the refined ones
+     as in phase 14; the means printed; (d) two frames of ucn-zoomin, card
+     against CPU (count equal, >= 99.5% of the labels);
+ 22. print a JSON line of the kernels' numbers (each row with the launches
+     of phases 20 and 21 beside those of earlier paths), the frame time,
+     and as the last line {"ok": true, "device": {...}}.
 Needs CUDA; it has no CPU mode.
 """
 
@@ -167,6 +191,30 @@ BENCH_FRAMES = 32
 CKPT_EVAL_FRAMES = 4
 DEMO_FRAMES = 2
 FG_AGREEMENT = 0.99
+# the ablation study's variants of the flagship config: the model sections of
+# configs/mask_refiner_{nohf,noeee,rgbd_add_l3,rgb_only}.yaml and
+# configs/panoptic_deeplab.yaml, restated (this script reads no YAML;
+# tests/test_torch_ablation.py holds them equal), and depth only
+ABLATION_CONFIGS = {
+    "nohf": {"hierarchical_fusion_on": False},
+    "noeee": {"eee_mask_on": False, "eee_boundary_on": False, "hierarchical_fusion_on": False},
+    "rgbd_add_l3": {"fusion_strategy": "add", "num_backbone_fusion_layers": 3},
+    "rgb_only": {"depth_on": False},
+    "depth_only": {"rgb_on": False},
+    "panoptic_deeplab": {"fusion_strategy": "add", "num_backbone_fusion_layers": 3,
+                         "offset_input_on": False, "eee_mask_on": False,
+                         "eee_boundary_on": False, "hierarchical_fusion_on": False},
+}
+ABLATION_SEED = 5
+# max |card - CPU| over max |CPU| of each output of a float32 forward (TF32
+# off): measured up to 3.0e-5 for the variants and 2.6e-5 for the flagship
+# beside them (H100, one run); a bf16 convolution moves it by ~1e-2
+ABLATION_RTOL = 2e-4
+UCN_POOL = 2
+UCN_LR = 1e-4  # train_zoo_torch's default
+UCN_CPU_STEPS = 2  # card against CPU
+UCN_CARD_STEPS = 40  # then on the card alone, timed
+ZOOM_FRAMES = 2
 # H100 SXM data sheet: HBM3 rate and fp32 rate outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
@@ -842,26 +890,28 @@ def train_full_width(params, packed, model_cfg, train_cfg, dev, card):
     return state, train_step, pool, launches
 
 
-def card_against_cpu(params, dev):
-    """Phase 12: one train step from the same state on the card and the CPU."""
+def card_against_cpu(dev, model_cfg, params=None, what="full depth"):
+    """Phase 12 (and phase 20 for rgb-only): one train step from the same
+    state on the card and the CPU, at batch 2 and 128x160: `params` (the
+    int8 weights) or else the train state's seeded init."""
     import dataclasses
 
     from quber_tpu_torch.config import TrainConfig
     from quber_tpu_torch.models.from_jax import state_dict_from_jax
     from quber_tpu_torch.models.layers import BatchNorm, ConvNorm
-    from quber_tpu_torch.models.mask_refiner import MaskRefinerConfig
     from quber_tpu_torch.profiling import packed_scene_pool
     from quber_tpu_torch.train.device_targets import make_device_target_step
     from quber_tpu_torch.train.loop import create_train_state
 
-    model_cfg = dataclasses.replace(MaskRefinerConfig(), height=128, width=160, aspp_dropout=0.0)
+    model_cfg = dataclasses.replace(model_cfg, height=128, width=160, aspp_dropout=0.0)
     train_cfg = TrainConfig(batch_size=2, warmup_iters=2)
     packed = torch.from_numpy(packed_scene_pool(model_cfg, train_cfg, 2, TRAIN_SLOTS, seed=21))
-    sd = state_dict_from_jax(params)
+    sd = None if params is None else state_dict_from_jax(params)
     results = {}
     for device in (dev, torch.device("cpu")):
         state = create_train_state(model_cfg, train_cfg, device=device)
-        state.model.load_state_dict(sd, strict=True)
+        if sd is not None:
+            state.model.load_state_dict(sd, strict=True)
         step = make_device_target_step(model_cfg, train_cfg, TRAIN_SLOTS)
         _, metrics = step(state, packed.to(device))
         grads = {n: p.grad.detach().cpu().double()
@@ -887,7 +937,7 @@ def card_against_cpu(params, dev):
         cos = float(torch.nn.functional.cosine_similarity(g.flatten(), grad_gpu[name].flatten(),
                                                           dim=0))
         worst = min(worst, (cos, name))
-    print(f"card against CPU, one step at batch 2, 128x160, full depth: losses card {loss_gpu} "
+    print(f"card against CPU, one step at batch 2, 128x160, {what}: losses card {loss_gpu} "
           f"cpu {loss_cpu} (rtol {CPU_LOSS_RTOL}); gradient cosine of "
           f"{len(grad_cpu) - len(zero_grad)} trainable tensors min {worst[0]:.6f} at {worst[1]} "
           f"(need >= {GRAD_COSINE}); {len(zero_grad)} biases ahead of a batch-statistics "
@@ -957,7 +1007,7 @@ def train_phases(params, rows, floor_ms, dev, card, work):
     checkpoint_roundtrip(state, train_step, pool.next_batch(), model_cfg, train_cfg, dev)
     del state, pool
     torch.cuda.empty_cache()
-    card_against_cpu(params, dev)
+    card_against_cpu(dev, model_cfg, params)
     return trained_dir, trained
 
 
@@ -1487,6 +1537,264 @@ def bench_phase(frames, initial):
     return launches
 
 
+def _variant_models():
+    """The flagship (the control), the six ablation configs as MaskRefiners
+    and the Panoptic-DeepLab module, each from the same seeded init, in
+    eval mode on the CPU: {name: (model, config or None)}."""
+    import dataclasses
+
+    from quber_tpu_torch.models.mask_refiner import MaskRefiner, MaskRefinerConfig
+    from quber_tpu_torch.models.panoptic_deeplab import PanopticDeepLab
+
+    models = {}
+    for name, overrides in {"flagship": {}, **ABLATION_CONFIGS}.items():
+        cfg = dataclasses.replace(MaskRefinerConfig(), **overrides)
+        models[name] = (MaskRefiner(cfg), cfg)
+    models["PanopticDeepLab"] = (PanopticDeepLab(), None)
+    for model, _ in models.values():
+        model.reset_parameters(torch.Generator().manual_seed(ABLATION_SEED))
+        model.eval()
+    return models
+
+
+def ablation_phase(frames, initial, dev, card):
+    """Phase 20: every ablation variant at full width on one of phase 14's
+    frames, card against CPU; each MaskRefiner variant once through
+    predict() with its launches counted; one rgb-only train step card
+    against CPU. Returns the launches of the predict() calls, summed."""
+    import dataclasses
+
+    from quber_tpu_torch.models.mask_refiner import MaskRefinerConfig
+    from quber_tpu_torch.ops import kernels
+    from quber_tpu_torch.predictor import MaskRefinerPredictor
+
+    rgb, depth = frames[list(frames)[0]][:2]
+    masks = torch.from_numpy(np.asarray(initial[0]) > 0)
+    image = torch.from_numpy(np.concatenate([rgb, depth], -1).astype(np.float32))
+    image = image.permute(2, 0, 1)[None]
+    # the encoding of the frame's initial masks, by the plain versions
+    _, centers, ok = kernels.instance_stats(masks, torch.ones(len(masks), dtype=torch.bool),
+                                            return_ok=True)
+    enc = kernels.encode_initial_masks(masks, ok, centers, sigma=10, normalize=True)[None]
+    gaps = {}
+    total = dict.fromkeys(_launch_counts(), 0)
+    for name, (model, cfg) in _variant_models().items():
+        args = (image,) if cfg is None else (image, enc)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            cpu = model(*args)
+            cpu_s = time.perf_counter() - t0
+            model.to(dev)
+            got = model(*(a.to(dev) for a in args))
+        torch.cuda.synchronize()
+        rel = {k: float((got[k].cpu() - v).abs().max() / v.abs().max()) for k, v in cpu.items()}
+        finite = all(bool(torch.isfinite(v).all()) for v in got.values())
+        gaps[name] = max(rel.values())
+        print(f"{name}: outputs {sorted(got)} of {list(got['offset'].shape[2:])}, max |card - "
+              f"CPU| over max |CPU| {({k: float(f'{r:.3g}') for k, r in rel.items()})} "
+              f"(tolerance {ABLATION_RTOL}; CPU forward {cpu_s:.2f} s)")
+        if not finite or gaps[name] > ABLATION_RTOL:
+            raise AssertionError(f"{name}: the card and the CPU disagree on the forward")
+        if name in ("flagship", "PanopticDeepLab"):
+            continue
+        predictor = MaskRefinerPredictor(cfg, model.state_dict(), device="cuda")
+        kernels.reset_launch_counts()
+        out = predictor.predict(rgb, depth, list(np.asarray(initial[0])))[0]
+        torch.cuda.synchronize()
+        launches = _launch_counts()
+        print(f"{name}: predict() on the card, "
+              f"{len(out.get('instances', {}).get('scores', []))} instances, keys "
+              f"{sorted(out)}, launches {launches}")
+        for k in ("instance_stats", "encode_initial_masks", "group_pixels"):
+            if launches[k] != 1:
+                raise AssertionError(f"{name}: {k} launched {launches[k]} times for one frame")
+        if launches["encode_initial_masks_batched"] or launches["group_pixels_batched"]:
+            raise AssertionError(f"{name}: a batched kernel was launched")
+        total = {k: total[k] + v for k, v in launches.items()}
+        del predictor
+    print(f"ablation variants, card against CPU at {H}x{W} float32: largest relative gap "
+          f"{max(v for k, v in gaps.items() if k != 'flagship'):.3g}, the flagship's own "
+          f"{gaps['flagship']:.3g} (tolerance {ABLATION_RTOL}) on {card}")
+    card_against_cpu(dev, dataclasses.replace(MaskRefinerConfig(), **ABLATION_CONFIGS["rgb_only"]),
+                     what="rgb_only, seeded init")
+    return total
+
+
+def _label_agreement(a, b):
+    return float((np.asarray(a) == np.asarray(b)).mean())
+
+
+def ucn_training(dev, card, work):
+    """Phase 21(a): train_zoo_torch's UCN steps at 480x640 on a pool of two
+    rendered scenes, card against CPU from the same init; then more steps
+    on the card alone, timed. Saves the card's weights under `work` as
+    train_zoo_torch does and returns (that checkpoint directory, the state
+    dict)."""
+    import train_zoo_torch as zoo
+    from quber_tpu_torch.models.from_jax import state_dict_to_jax
+    from quber_tpu_torch.train.checkpoint import save_params
+
+    t0 = time.perf_counter()
+    scenes = zoo.make_labeled_scenes(UCN_POOL, H, W, 7, (250, 1500))
+    print(f"{UCN_POOL} UCN scenes rendered in {time.perf_counter() - t0:.1f} s")
+    runs = {}
+    for device in (dev, torch.device("cpu")):
+        model, optimizer = zoo.make_ucn(7, UCN_LR, device)
+        step = zoo.make_ucn_step(model, optimizer)
+        pool = zoo.stage(scenes, device)
+        losses, grads = [], None
+        for i in range(UCN_CPU_STEPS):
+            loss, _ = step(pool, i % UCN_POOL)
+            losses.append(float(loss))
+            if grads is None:
+                grads = {n: p.grad.detach().cpu().double() for n, p in model.named_parameters()}
+        runs[device.type] = (losses, grads, {k: v.detach().cpu()
+                                             for k, v in model.state_dict().items()})
+        if device.type == "cuda":
+            on_card = (model, step, pool)
+    (loss_gpu, grad_gpu, sd_gpu), (loss_cpu, grad_cpu, sd_cpu) = runs["cuda"], runs["cpu"]
+    cos = min((float(torch.nn.functional.cosine_similarity(g.flatten(), grad_gpu[n].flatten(),
+                                                           dim=0)), n)
+              for n, g in grad_cpu.items())
+    diff = max((float((sd_gpu[k] - v).abs().max()), k) for k, v in sd_cpu.items())
+    moved = max(float(v.abs().max()) for k, v in sd_gpu.items() if k.endswith("running_mean"))
+    print(f"UCN, {UCN_CPU_STEPS} steps at {H}x{W} card against CPU: losses card {loss_gpu} cpu "
+          f"{loss_cpu} (rtol {CPU_LOSS_RTOL}); first gradient cosine min {cos[0]:.6f} at "
+          f"{cos[1]} (need >= {GRAD_COSINE}); weights and BatchNorm statistics after the steps "
+          f"max |card - CPU| {diff[0]:.3g} at {diff[1]} (need <= {2.1 * UCN_LR * UCN_CPU_STEPS:.3g}, "
+          f"2.1 learning rates a step); running means moved up to {moved:.3g} from 0")
+    for a, b in zip(loss_gpu, loss_cpu):
+        if not abs(a - b) <= CPU_LOSS_RTOL * abs(b):
+            raise AssertionError("UCN: the card and the CPU disagree on a loss")
+    if cos[0] < GRAD_COSINE or diff[0] > 2.1 * UCN_LR * UCN_CPU_STEPS or not moved > 0:
+        raise AssertionError("UCN: the card and the CPU disagree on a step")
+    model, step, pool = on_card
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    times = []
+    for i in range(UCN_CARD_STEPS):
+        t0 = time.perf_counter()
+        loss, _ = step(pool, i % UCN_POOL)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    print(f"UCN train step on the card: {statistics.median(times):.3f} ms median of "
+          f"{UCN_CARD_STEPS} (batch 1, {H}x{W}), loss {float(loss):.4f}, peak "
+          f"{peak:.3f} GiB on {card}")
+    ckpt = os.path.join(work, "ucn", "ckpt")
+    save_params(ckpt, state_dict_to_jax(model), step=UCN_CPU_STEPS + UCN_CARD_STEPS)
+    return ckpt, {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+
+def ucn_clustering(state, frames, card):
+    """Phase 21(b): cluster_embeddings on the card and the CPU on the same
+    embeddings of phase 14's frames."""
+    from quber_tpu_torch.models.ucn import UCNBaseModel
+    from quber_tpu_torch.ops.meanshift import cluster_embeddings
+
+    base = UCNBaseModel(params=state, device="cuda")
+    counts, agree = [], []
+    for rgb_path, depth_path in frames:
+        rgb, xyz = (torch.from_numpy(np.ascontiguousarray(a.transpose(2, 0, 1))).cuda()
+                    for a in base.read_frame(rgb_path, depth_path))
+        with torch.inference_mode():
+            emb = base.model(rgb[None], xyz[None])[0].permute(1, 2, 0)
+            got = cluster_embeddings(emb)
+        want = cluster_embeddings(emb.cpu())
+        counts.append((int(got["num_instances"]), int(want["num_instances"])))
+        agree.append(_label_agreement(got["labels"].cpu(), want["labels"]))
+    edge = [i + 1 for i, a in enumerate(agree) if a < 1.0]
+    print(f"UCN clustering, card against CPU on the card's embeddings of {len(agree)} frames: "
+          f"instances (card, CPU) {counts}, label agreement min {min(agree):.6f} (need "
+          f">= {PANOPTIC_AGREEMENT} and equal counts); knife-edge frames (< 100% equal) {edge}")
+    if any(a != b for a, b in counts) or min(agree) < PANOPTIC_AGREEMENT:
+        raise AssertionError("UCN: the card and the CPU cluster the same embeddings differently")
+    if not any(a for a, _ in counts):
+        raise AssertionError("UCN: no frame gave an instance")
+
+
+def ucn_evaluation(ckpt, root, params, frames, card):
+    """Phase 21(c): phase 14's frames through run_eval with the UCN base
+    model (from $QUBER_UCN_CKPT) and the flagship refiner, per image and
+    streamed. Returns the launches of both passes."""
+    from quber_tpu_torch.evaluation.harness import PRINT_KEYS, masks_to_label_image, run_eval
+    from quber_tpu_torch.ops import kernels
+
+    os.environ["QUBER_UCN_CKPT"] = ckpt
+    refiner = _Recording(_eval_refiner(None, params, frames, replay=True))
+    passes = {}
+    for name, batch in (("per-image", 0), ("streamed", BATCH)):
+        refiner.inner.seconds.clear()
+        refiner.initial, refiner.masks = [], []
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = run_eval(base_model="ucn", refiner_model=refiner, test_dataset="OSD",
+                       dataset_path=root, refine_batch=batch, device="cuda",
+                       csv_path=os.path.join(os.path.dirname(root), "phase21", name, "eval.csv"))
+        torch.cuda.synchronize()
+        passes[name] = (res, _launch_counts(), list(refiner.initial), list(refiner.masks),
+                        time.perf_counter() - t0)
+    (res1, launches1, init1, masks1, wall1), (res2, launches2, init2, masks2, wall2) = \
+        passes.values()
+    print(f"UCN evaluation per image: launches {launches1}; streamed (B={BATCH}): {launches2}")
+    for name in ("instance_stats", "encode_initial_masks", "group_pixels"):
+        if launches1[name] != EVAL_FRAMES:
+            raise AssertionError(f"UCN evaluation: {name} launched {launches1[name]} times "
+                                 f"for {EVAL_FRAMES} frames")
+    if launches1["encode_initial_masks_batched"] or launches1["group_pixels_batched"]:
+        raise AssertionError("UCN evaluation per image: a batched kernel was launched")
+    _check_launches("UCN evaluation, streamed", launches2, -(-EVAL_FRAMES // BATCH))
+    label = lambda m: masks_to_label_image(m, np.zeros((H, W), np.int32))  # noqa: E731
+    for i in range(EVAL_FRAMES):
+        if len(init1[i]) != len(init2[i]) or not np.array_equal(label(init1[i]), label(init2[i])):
+            raise AssertionError(f"UCN evaluation frame {i}: the base model's masks differ "
+                                 "between the passes")
+        agree = _label_agreement(label(masks1[i]), label(masks2[i]))
+        if len(masks1[i]) != len(masks2[i]) or agree < PANOPTIC_AGREEMENT:
+            raise AssertionError(f"UCN evaluation frame {i}: per image and streamed disagree")
+    if len(masks1) != EVAL_FRAMES or len(masks2) != EVAL_FRAMES:
+        raise AssertionError("a UCN evaluation pass did not refine every frame")
+    worst = max(abs(res2[s][k] - res1[s][k]) for s in ("initial", "refined") for k in PRINT_KEYS)
+    if not worst <= EVAL_MEANS_ATOL:
+        raise AssertionError("UCN evaluation: streamed and per-image means disagree")
+    means = {s: {k: round(res1[s][k], 6) for k in ("Objects F-measure", "Boundary F-measure")}
+             for s in ("initial", "refined")}
+    sec = {k: round(v / EVAL_FRAMES, 4) for k, v in res1["seconds"].items()}
+    print(f"UCN base (phase 21(a)'s weights) -> flagship int8 refiner, {EVAL_FRAMES} frames: "
+          f"instances per frame {[len(m) for m in init1]} -> {[len(m) for m in masks1]}, "
+          f"means {means}, largest streamed difference {worst:.3g}; s/frame {sec}; pass wall "
+          f"{wall1:.2f} / {wall2:.2f} s on {card}")
+    return launches1, launches2
+
+
+def ucn_zoom(state, frames, card):
+    """Phase 21(d): the zoom-in wrapper on two frames, card against CPU."""
+    from quber_tpu_torch.evaluation.harness import masks_to_label_image
+    from quber_tpu_torch.models.ucn import UCNBaseModel
+
+    results = {}
+    for device in ("cuda", "cpu"):
+        base = UCNBaseModel(params=state, zoom_in=True, device=device)
+        results[device] = [base.predict(*key) for key in list(frames)[:ZOOM_FRAMES]]
+    for i, (g, c) in enumerate(zip(results["cuda"], results["cpu"])):
+        agree = _label_agreement(masks_to_label_image(g[0], np.zeros((H, W), np.int32)),
+                                 masks_to_label_image(c[0], np.zeros((H, W), np.int32)))
+        print(f"ucn-zoomin frame {i + 1}: instances card {len(g[0])} CPU {len(c[0])}, label "
+              f"agreement {agree:.6f} (need >= {PANOPTIC_AGREEMENT}), card {g[2]:.3f} s, CPU "
+              f"{c[2]:.3f} s on {card}")
+        if len(g[0]) != len(c[0]) or agree < PANOPTIC_AGREEMENT:
+            raise AssertionError("ucn-zoomin: the card and the CPU disagree")
+
+
+def ucn_phase(root, params, frames, dev, card, work):
+    """Phase 21: UCN on the card. Returns the launches of 21(c)'s passes."""
+    ckpt, state = ucn_training(dev, card, work)
+    ucn_clustering(state, frames, card)
+    launches = ucn_evaluation(ckpt, root, params, frames, card)
+    ucn_zoom(state, frames, card)
+    return launches
+
+
 _T0 = time.perf_counter()
 
 
@@ -1563,9 +1871,15 @@ def main() -> int:
         _elapsed("phase 17")
         single, batched = cli_phase(params, root, frames, card)
         _elapsed("phase 18")
-    torch.cuda.empty_cache()
-    bench_launches = bench_phase(frames, initial)
-    _elapsed("phase 19")
+        torch.cuda.empty_cache()
+        bench_launches = bench_phase(frames, initial)
+        _elapsed("phase 19")
+        torch.cuda.empty_cache()
+        ablation_launches = ablation_phase(frames, initial, dev, card)
+        _elapsed("phase 20")
+        torch.cuda.empty_cache()
+        ucn_launches = ucn_phase(root, params, frames, dev, card, work)
+        _elapsed("phase 21")
     # the serving shapes' entries: launches on the single-frame CLI path
     # (predict, K = 24) and on the benchmark's batches of 16
     for row in rows:
@@ -1578,6 +1892,14 @@ def main() -> int:
             entry["floor_ms"] = floor_ms
         if entries:
             row["serving"] = entries
+        # the launches of the ablation variants' predict() (phase 20) and of
+        # the UCN -> refiner evaluation per image and streamed (phase 21)
+        name = row["name"]
+        row["ablation"] = {"launches": ablation_launches[name],
+                           "path": f"predict() of {len(ABLATION_CONFIGS)} variants, 1 frame each"}
+        row["ucn_eval"] = {"launches_per_image": ucn_launches[0][name],
+                           "launches_streamed": ucn_launches[1][name],
+                           "path": f"run_eval, base ucn, {EVAL_FRAMES} frames"}
 
     steady = times[1:]
     med = statistics.median(steady)

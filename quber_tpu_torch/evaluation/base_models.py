@@ -6,8 +6,12 @@ protocols, behind the interface
 
     predict(rgb_path, depth_path) -> (masks [N, H, W] bool, fg_mask | None, seconds)
 
-The learned base segmenters of the zoo are not ported yet: their names
-raise NotImplementedError (ROADMAP.md, Queue 1 item 14).
+UCN (`ucn`, `ucn-zoomin`) reads its weights from $QUBER_UCN_CKPT: a
+checkpoint directory of train_zoo_torch.py or an int8 .npz in the JAX
+package's layout (random init from seed 0 when it is unset or holds no
+checkpoint, as in the reference). The other learned base segmenters of the
+zoo are not ported yet: their names raise NotImplementedError (ROADMAP.md,
+Queue 1 item 14).
 """
 
 from __future__ import annotations
@@ -22,7 +26,7 @@ from quber_tpu_torch.evaluation.datasets import BG_LABELS, EVAL_H, EVAL_W
 from quber_tpu_torch.ops.preprocess import resize_nearest
 
 ZOO_BASE_MODELS = (
-    "ucn", "ucn-zoomin", "msmformer", "msmformer-zoomin", "msmformer-pretrained",
+    "msmformer", "msmformer-zoomin", "msmformer-pretrained",
     "uoaisnet-pretrained", "uoisnet3d", "uoisnet3d-pretrained", "uoaisnet",
     "uoaisnet-amodal", "sam", "sam-depth", "detic", "grounded-sam",
 )
@@ -104,7 +108,20 @@ STRUCTURAL_RATIOS = {"fp": 1.0, "over": 1.0, "under": 1.0, "delete": 0.0,
                      "boundary": 0.0}
 
 
-def build_base_model(name: str, dataset: str, npy_folder: str = ""):
+def _restore_or_none(path: str):
+    """The weights at `path` (train.checkpoint.load_eval_params), or None
+    when the path is unset or holds no checkpoint."""
+    if not path:
+        return None
+    from quber_tpu_torch.train.checkpoint import load_eval_params
+
+    try:
+        return load_eval_params(path)
+    except FileNotFoundError:
+        return None
+
+
+def build_base_model(name: str, dataset: str, npy_folder: str = "", device="cuda"):
     if name == "gt":
         return GT(dataset)
     if name == "empty":
@@ -115,9 +132,14 @@ def build_base_model(name: str, dataset: str, npy_folder: str = ""):
         return PerturbedGT(dataset)
     if name == "perturbed-gt-structural":
         return PerturbedGT(dataset, ratios=STRUCTURAL_RATIOS)
+    if name in ("ucn", "ucn-zoomin"):
+        from quber_tpu_torch.models.ucn import UCNBaseModel
+
+        return UCNBaseModel(params=_restore_or_none(os.environ.get("QUBER_UCN_CKPT", "")),
+                            dataset=dataset, zoom_in=name.endswith("zoomin"), device=device)
     if name in ZOO_BASE_MODELS:
         raise NotImplementedError(
             f"base model {name} is not ported yet (ROADMAP.md, Queue 1 item 14)")
     raise NotImplementedError(
         f"base model {name}; available: gt, empty, npy, perturbed-gt, "
-        "perturbed-gt-structural")
+        "perturbed-gt-structural, ucn, ucn-zoomin")

@@ -143,7 +143,7 @@ def run_eval(
     device="cuda",
 ):
     base = base_model if not isinstance(base_model, str) else build_base_model(
-        base_model, test_dataset, npy_folder
+        base_model, test_dataset, npy_folder, device=device
     )
     refiner = (
         refiner_model

@@ -1,5 +1,6 @@
 """Carry a flax variable tree across to a torch state dict (the MaskRefiner
-and the foreground nets CGNet and LMFFNet).
+in every configuration, the Panoptic-DeepLab baseline, the UCN embedding
+net and the foreground nets CGNet and LMFFNet).
 
 The port's modules are named after the flax scopes, so the map is a rename:
   * `<scope>/kernel` -> `<scope>.weight`, conv kernels HWIO -> OIHW and
@@ -7,7 +8,9 @@ The port's modules are named after the flax scopes, so the map is a rename:
   * the norm scopes `GroupNorm_0`, `BatchNorm_0`, `FrozenBatchNorm_0` -> `norm`,
     with `scale` -> `weight`, `frozen_weight` / `frozen_bias` -> `weight` /
     `bias` and `frozen_mean` / `frozen_var` -> `running_mean` / `running_var`;
-  * `batch_stats/.../BatchNorm_0/{mean,var}` -> `norm.running_{mean,var}`;
+  * `batch_stats/.../BatchNorm_0/{mean,var}` -> `norm.running_{mean,var}`,
+    and a named BatchNorm scope's (UCN's `bn1`, `downsample_bn`, ...) ->
+    `<scope>.running_{mean,var}`;
   * a PReLU's `alpha` -> the `weight` of its nn.PReLU.
 `state_dict_to_jax` is the inverse (it reads the norm scopes off the module
 types), and `load_optax_adam_state` carries Adam moments kept in the flax
@@ -21,6 +24,7 @@ import torch
 from torch import nn
 
 from quber_tpu_torch.models.layers import BatchNorm, FrozenBatchNorm, GroupNorm
+from quber_tpu_torch.models.ucn import RunningBatchNorm
 
 _NORM_SCOPES = {"GroupNorm_0", "BatchNorm_0", "FrozenBatchNorm_0"}
 
@@ -91,6 +95,8 @@ _TO_JAX = {
     FrozenBatchNorm: ("FrozenBatchNorm_0", {
         "weight": "frozen_weight", "bias": "frozen_bias",
         "running_mean": "frozen_mean", "running_var": "frozen_var"}),
+    RunningBatchNorm: ("BatchNorm_0", {"weight": "scale", "bias": "bias",
+                                       "running_mean": "mean", "running_var": "var"}),
 }
 
 
@@ -106,7 +112,7 @@ def state_dict_to_jax(model: nn.Module) -> dict:
         parent = model.get_submodule(".".join(scopes))
         if type(parent) in _TO_JAX:
             scope, leaves = _TO_JAX[type(parent)]
-            if isinstance(parent, BatchNorm) and leaf.startswith("running_"):
+            if isinstance(parent, (BatchNorm, RunningBatchNorm)) and leaf.startswith("running_"):
                 collection = "batch_stats"
             # a module's `norm` stands for flax's unnamed norm scope; a norm
             # with a name of its own (the foreground nets' `bn`) keeps it

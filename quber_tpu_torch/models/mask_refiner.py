@@ -22,7 +22,7 @@ from torch import nn
 
 from quber_tpu_torch.models.heads import ERROR_TYPE_CHANNELS, InsEmbedHead
 from quber_tpu_torch.models.layers import ASPP, Conv2d, upsample_bilinear
-from quber_tpu_torch.models.resnet import RGBDFusionBackbone
+from quber_tpu_torch.models.resnet import RGBDFusionBackbone, SingleTrunkBackbone
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,7 +105,8 @@ class MaskRefinerConfig:
 class MaskRefiner(nn.Module):
     """Backbone + hierarchical head.
 
-    forward(images [B,6,H,W], offset_enc [B,3,H,W] | None) -> dict of
+    forward(images [B,6,H,W] (or [B,3,H,W] for a single-modality config),
+    offset_enc [B,3,H,W] | None) -> dict of
     full-resolution outputs: foreground [B,1,H,W] logits, center [B,1,H,W],
     offset [B,2,H,W] in pixels, eee_mask / eee_boundary [B,C,H,W] logits.
     With full_res=False the stride-4 head outputs are returned.
@@ -114,22 +115,31 @@ class MaskRefiner(nn.Module):
     def __init__(self, config: MaskRefinerConfig = MaskRefinerConfig()):
         super().__init__()
         cfg = config
-        if not (cfg.rgb_on and cfg.depth_on):
-            raise NotImplementedError("single-modality backbones are not ported yet")
+        if not (cfg.rgb_on or cfg.depth_on):
+            raise ValueError("a MaskRefiner needs rgb_on or depth_on")
         if cfg.dtype not in ("float32", "bfloat16"):
             raise ValueError(f"dtype {cfg.dtype}: float32 or bfloat16")
         self.config = cfg
+        # the channels of a packed 6-channel frame (BGR, depth) the model reads
+        self.channels = (0 if cfg.rgb_on else 3, 6 if cfg.depth_on else 3)
         self.register_buffer("pixel_mean", torch.tensor(cfg.pixel_mean, dtype=torch.float32)
                              .view(-1, 1, 1), persistent=False)
         self.register_buffer("pixel_std", torch.tensor(cfg.pixel_std, dtype=torch.float32)
                              .view(-1, 1, 1), persistent=False)
-        self.backbone = RGBDFusionBackbone(
-            fusion_strategy=cfg.fusion_strategy,
-            num_fusion_layers=cfg.num_backbone_fusion_layers,
-            depth=cfg.resnet_depth, out_features=tuple(cfg.in_features),
-            norm=cfg.backbone_norm, offset_input=cfg.offset_input_on,
-            remat=cfg.remat_backbone,
-        )
+        if cfg.rgb_on and cfg.depth_on:
+            self.backbone = RGBDFusionBackbone(
+                fusion_strategy=cfg.fusion_strategy,
+                num_fusion_layers=cfg.num_backbone_fusion_layers,
+                depth=cfg.resnet_depth, out_features=tuple(cfg.in_features),
+                norm=cfg.backbone_norm, offset_input=cfg.offset_input_on,
+                remat=cfg.remat_backbone,
+            )
+        else:
+            self.backbone = SingleTrunkBackbone(
+                3 + 3 * cfg.offset_input_on, depth=cfg.resnet_depth,
+                out_features=tuple(cfg.in_features), norm=cfg.backbone_norm,
+                remat=cfg.remat_backbone,
+            )
         self.ins_embed_head = InsEmbedHead(
             self.backbone.out_channels,
             in_features=tuple(cfg.in_features),
@@ -159,27 +169,21 @@ class MaskRefiner(nn.Module):
             if isinstance(mod, ASPP):
                 mod.dropout_generator = generator
 
-    @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
         """Random init from `generator`, with the JAX package's initialisers:
         LeCun-normal convs (normal(0.001) for the 1x1 predictors), zero
         biases, unit norm scales and identity norm statistics."""
-        for name, mod in self.named_modules():
-            if isinstance(mod, nn.Conv2d):
-                fan_in = mod.weight[0].numel()
-                std = 0.001 if name.endswith("_predictor") else 1.0 / math.sqrt(fan_in)
-                mod.weight.copy_(torch.randn(mod.weight.shape, generator=generator) * std)
-                if mod.bias is not None:
-                    mod.bias.zero_()
-            elif hasattr(mod, "running_var") or isinstance(mod, nn.GroupNorm):
-                mod.weight.fill_(1.0)
-                mod.bias.zero_()
-                if hasattr(mod, "running_var"):
-                    mod.running_mean.zero_()
-                    mod.running_var.fill_(1.0)
+        reset_parameters(self, generator)
 
     def forward(self, images, offset_enc=None, full_res: bool = True):
-        x = (images.float() - self.pixel_mean) / self.pixel_std
+        # a single-modality model takes its slice of a packed 6-channel frame;
+        # a frame of its own channels alone passes through. Without
+        # offset_input_on, offset_enc is not read.
+        lo, hi = self.channels
+        if images.shape[1] == 6 and (lo, hi) != (0, 6):
+            images = images[:, lo:hi]
+        c = images.shape[1]
+        x = (images.float() - self.pixel_mean[lo:hi][:c]) / self.pixel_std[lo:hi][:c]
         if self.config.offset_input_on:
             if offset_enc is None:
                 raise ValueError("offset_input_on needs offset_enc")
@@ -189,6 +193,25 @@ class MaskRefiner(nn.Module):
         if not full_res:
             return outputs
         return upsample_outputs(outputs, self.config.common_stride)
+
+
+@torch.no_grad()
+def reset_parameters(model: nn.Module, generator: torch.Generator) -> None:
+    """MaskRefiner.reset_parameters for any module built of the refiner's
+    layers (the Panoptic-DeepLab baseline too)."""
+    for name, mod in model.named_modules():
+        if isinstance(mod, nn.Conv2d):
+            fan_in = mod.weight[0].numel()
+            std = 0.001 if name.endswith("_predictor") else 1.0 / math.sqrt(fan_in)
+            mod.weight.copy_(torch.randn(mod.weight.shape, generator=generator) * std)
+            if mod.bias is not None:
+                mod.bias.zero_()
+        elif hasattr(mod, "running_var") or isinstance(mod, nn.GroupNorm):
+            mod.weight.fill_(1.0)
+            mod.bias.zero_()
+            if hasattr(mod, "running_var"):
+                mod.running_mean.zero_()
+                mod.running_var.fill_(1.0)
 
 
 def upsample_outputs(outputs: dict, common_stride: int) -> dict:

@@ -3,7 +3,9 @@
 Port of quber_tpu/models/resnet.py: two ResNet trunks with the 3-conv
 DeepLab stem, res5 dilation 2 with multi-grid (1, 2, 4), and per-stage
 concat fusion. The 3-channel offset encoding is appended to BOTH trunk
-inputs, so each stem takes 6 channels when offsets are on.
+inputs, so each stem takes 6 channels when offsets are on. The
+single-modality ablations (rgb-only, depth-only) run one trunk,
+`SingleTrunkBackbone`.
 """
 
 from __future__ import annotations
@@ -122,6 +124,22 @@ class ResNetTrunk(nn.Module):
             if stage in self.out_features:
                 outputs[stage] = x
         return outputs
+
+
+class SingleTrunkBackbone(nn.Module):
+    """One trunk, named `trunk`, over the whole input (one modality's three
+    channels, plus the offset encoding when it is on)."""
+
+    def __init__(self, in_channels: int, depth: int = 50,
+                 out_features: Sequence[str] = ("res2", "res3", "res5"),
+                 norm: str = "FrozenBN", remat: bool = False):
+        super().__init__()
+        self.trunk = ResNetTrunk(in_channels, depth, out_features=out_features, norm=norm,
+                                 remat=remat)
+        self.out_channels = {f: self.trunk.out_channels[f] for f in out_features}
+
+    def forward(self, x):
+        return self.trunk(x)
 
 
 class RGBDFusionBackbone(nn.Module):

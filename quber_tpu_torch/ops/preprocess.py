@@ -1,5 +1,6 @@
 """RGB-D preprocessing on the host: depth normalisation, Telea inpainting,
-ImageNet standardisation and OpenCV's resizes, in numpy and scipy.
+ImageNet standardisation, the point cloud of a depth map and OpenCV's
+resizes, in numpy and scipy.
 
 Port of the host functions of quber_tpu/ops/preprocess.py, which call
 OpenCV; the port has no OpenCV, so this module carries its own copies:
@@ -48,6 +49,34 @@ def standardize_image(image: np.ndarray) -> np.ndarray:
     mean = np.array([0.485, 0.456, 0.406], dtype=np.float32)
     std = np.array([0.229, 0.224, 0.225], dtype=np.float32)
     return (np.asarray(image, dtype=np.float32) / 255.0 - mean) / std
+
+
+def compute_xyz(depth_img: np.ndarray, camera_params: dict) -> np.ndarray:
+    """Ordered point cloud [H, W, 3] from metric depth [H, W]: x right, y up,
+    z forward, with the row index flipped so that y counts from the bottom.
+    The focal lengths come from `fx` / `fy`, or else from `fov`, `near` and
+    the image size; the centre from `x_offset` / `y_offset`, or else the
+    image's middle."""
+    if "fx" in camera_params and "fy" in camera_params:
+        fx, fy = camera_params["fx"], camera_params["fy"]
+    else:
+        aspect = camera_params["img_width"] / camera_params["img_height"]
+        e = 1 / np.tan(np.radians(camera_params["fov"] / 2.0))
+        t = camera_params["near"] / e
+        r = t * aspect
+        alpha = camera_params["img_width"] / (2 * r)
+        fx = fy = camera_params["near"] * alpha
+
+    x_offset = camera_params.get("x_offset", camera_params["img_width"] / 2)
+    y_offset = camera_params.get("y_offset", camera_params["img_height"] / 2)
+
+    h, w = depth_img.shape
+    ys, xs = np.indices((h, w), dtype=np.float32)
+    ys = np.flipud(ys)
+    z = depth_img
+    x = (xs - x_offset) * z / fx
+    y = (ys - y_offset) * z / fy
+    return np.stack([x, y, z], axis=-1)
 
 
 def _nearest_index(n_in: int, n_out: int) -> np.ndarray:
