@@ -131,8 +131,26 @@ Phases (any failure ends the run with a non-zero exit code):
      (one batched launch a batch): the base masks equal, the refined ones
      as in phase 14; the means printed; (d) two frames of ucn-zoomin, card
      against CPU (count equal, >= 99.5% of the labels);
- 22. print a JSON line of the kernels' numbers (each row with the launches
-     of phases 20 and 21 beside those of earlier paths), the frame time,
+ 22. training from files: (a) phase 14's 16 frames made a UOAIS-Sim-layout
+     panoptic set by the port's detection2panoptic, perturbate_masks
+     (Felzenszwalb-seeded) and panoptic2eee (data/make_uoais_sim.py) and
+     registered; (b) 4 device-target steps of the flagship at batch 8 and
+     480x640 from the int8 weights, the batches read from those files by
+     PackedMapper with SSD colour and Perlin on: finite losses, two
+     statistics launches and one batched encode launch a step, no
+     single-frame launch, and the first file-packed batch's targets on the
+     card against the CPU as in phase 10; (c) two host-target steps through
+     the multi-scale PerturbedPanopticMapper (min_size_train 384 and 480):
+     one bucket a batch, zero loss weights in every margin; (d) the worker
+     loader with 2 processes gives the in-process loader's first 2 batches
+     byte for byte (augmentation off); (e) CGNet and LMFFNet, 10 steps each
+     at batch 8 on phase 14's frames (train_fg_torch's samples): finite
+     losses, the pool's loss lower after than before, one step at batch 2
+     on the card against the CPU (loss rtol 1e-4, gradient cosine >=
+     0.999), and the CGNet saved as train_fg_torch saves it filtering a
+     frame through $QUBER_CGNET_CKPT;
+ 23. print a JSON line of the kernels' numbers (each row with the launches
+     of phases 20-22 beside those of earlier paths), the frame time,
      and as the last line {"ok": true, "device": {...}}.
 Needs CUDA; it has no CPU mode.
 """
@@ -215,6 +233,10 @@ UCN_LR = 1e-4  # train_zoo_torch's default
 UCN_CPU_STEPS = 2  # card against CPU
 UCN_CARD_STEPS = 40  # then on the card alone, timed
 ZOOM_FRAMES = 2
+FILE_STEPS = 4  # phase 22(b)
+FG_STEPS = 10  # phase 22(e)
+FG_LOSS_RTOL = 1e-4
+FG_CPU_BATCH = 2  # phase 22(e)'s step on the card against the CPU
 # H100 SXM data sheet: HBM3 rate and fp32 rate outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
@@ -765,18 +787,20 @@ def _train_launch_counts(path, launches, steps):
             raise AssertionError(f"{path}: {name} was launched")
 
 
-def check_targets(packed, model_cfg, train_cfg, dev, flush):
-    """Phase 10: build_targets on the card against the CPU, and the two
-    kernels' times at the training shape."""
-    from quber_tpu_torch.ops import encoding, kernels
+def _targets_against_cpu(tag, bufs, model_cfg, train_cfg, dev):
+    """build_targets of packed samples `bufs` (uint8 [B, bytes], on the host)
+    on the card and on the CPU: the binary maps and weights exact, center,
+    offset and offset_enc within TARGET_ATOL; the card's pass launches the
+    statistics kernel twice and the batched encode once. Returns the card's
+    unpacked stacks (gt, gv, pert, pv)."""
+    from quber_tpu_torch.ops import kernels
     from quber_tpu_torch.train.device_targets import build_targets, unpack_train_sample
 
-    bufs = torch.from_numpy(packed[:BATCH])
     _, gt, gv, pert, pv = unpack_train_sample(bufs.to(dev), H, W, TRAIN_SLOTS)
     kernels.reset_launch_counts()
     got = build_targets(gt, gv, pert, pv, model_cfg, train_cfg)
     torch.cuda.synchronize()
-    _train_launch_counts("build_targets on the card", _launch_counts(), 1)
+    _train_launch_counts(f"{tag}: build_targets on the card", _launch_counts(), 1)
     _, *stacks_cpu = unpack_train_sample(bufs, H, W, TRAIN_SLOTS)
     want = build_targets(*stacks_cpu, model_cfg, train_cfg)
     errs = {}
@@ -787,11 +811,21 @@ def check_targets(packed, model_cfg, train_cfg, dev, flush):
         g, w = got[key].cpu(), want[key]
         errs[key] = float((g - w).abs().max())
         if g.shape != w.shape or not errs[key] <= tol:
-            raise AssertionError(f"build_targets: {key} differs between card and CPU by "
-                                 f"{errs[key]} (tolerance {tol})")
-    print(f"build_targets B={BATCH} N={TRAIN_SLOTS} {H}x{W}, valid GT per scene "
-          f"{gv.sum(dim=1).tolist()}, perturbed {pv.sum(dim=1).tolist()}: max |card - cpu| {errs} "
-          f"(tolerance 0, and {TARGET_ATOL} for center, offset, offset_enc)")
+            raise AssertionError(f"{tag}: build_targets' {key} differs between card and CPU "
+                                 f"by {errs[key]} (tolerance {tol})")
+    print(f"{tag}: build_targets B={len(bufs)} N={TRAIN_SLOTS} {H}x{W}, valid GT per scene "
+          f"{gv.sum(dim=1).tolist()}, perturbed {pv.sum(dim=1).tolist()}: max |card - cpu| "
+          f"{errs} (tolerance 0, and {TARGET_ATOL} for center, offset, offset_enc)")
+    return gt, gv, pert, pv
+
+
+def check_targets(packed, model_cfg, train_cfg, dev, flush):
+    """Phase 10: build_targets on the card against the CPU, and the two
+    kernels' times at the training shape."""
+    from quber_tpu_torch.ops import encoding, kernels
+
+    bufs = torch.from_numpy(packed[:BATCH])
+    gt, gv, pert, pv = _targets_against_cpu("phase 10", bufs, model_cfg, train_cfg, dev)
 
     hw = H * W
     _, centers, ok = kernels.instance_stats(pert, pv, return_ok=True)
@@ -1795,6 +1829,252 @@ def ucn_phase(root, params, frames, dev, card, work):
     return launches
 
 
+def _file_configs(**train):
+    from quber_tpu_torch.config import TrainConfig
+    from quber_tpu_torch.models.mask_refiner import MaskRefinerConfig
+
+    # the anchor's depth range, a warm-up of two steps
+    return MaskRefinerConfig(), TrainConfig(batch_size=BATCH, warmup_iters=2,
+                                            depth_range=(250, 1500), **train)
+
+
+def _file_state(params, model_cfg, train_cfg, dev):
+    from quber_tpu_torch.models.from_jax import state_dict_from_jax
+    from quber_tpu_torch.train.loop import create_train_state
+
+    state = create_train_state(model_cfg, train_cfg, device=dev)
+    state.model.load_state_dict(state_dict_from_jax(params), strict=True)
+    return state
+
+
+def file_device_targets(params, dev, card):
+    """Phase 22(b): device-target steps from the files, SSD colour and Perlin
+    on; the first batch's targets on the card against the CPU. Returns the
+    launches of the steps."""
+    from quber_tpu_torch.data.datasets import get_dataset
+    from quber_tpu_torch.data.mappers import batch_iterator
+    from quber_tpu_torch.ops import kernels
+    from quber_tpu_torch.train.device_targets import PackedMapper, make_device_target_step
+
+    model_cfg, train_cfg = _file_configs()
+    records = get_dataset("uoais_sim_train_panoptic")
+    batches = batch_iterator(records, PackedMapper(train_cfg, model_cfg, TRAIN_SLOTS),
+                             BATCH, seed=train_cfg.seed)
+    t0 = time.perf_counter()
+    first = torch.from_numpy(next(batches)["packed"])
+    host_s = time.perf_counter() - t0
+    _targets_against_cpu("phase 22(b), files with SSD colour and Perlin", first, model_cfg,
+                         train_cfg, dev)
+    state = _file_state(params, model_cfg, train_cfg, dev)
+    step = make_device_target_step(model_cfg, train_cfg, TRAIN_SLOTS)
+    kernels.reset_launch_counts()
+    losses = []
+    for i in range(FILE_STEPS):
+        if i:
+            t0 = time.perf_counter()
+            bufs = torch.from_numpy(next(batches)["packed"])
+            host_s += time.perf_counter() - t0
+        else:
+            bufs = first
+        _, metrics = step(state, bufs.to(dev))
+        losses.append({k: float(v) for k, v in metrics.items()})
+    launches = _launch_counts()
+    _train_launch_counts(f"phase 22(b): {FILE_STEPS} device-target steps from files",
+                         launches, FILE_STEPS)
+    totals = [round(m["total_loss"], 6) for m in losses]
+    print(f"phase 22(b): {FILE_STEPS} flagship steps at batch {BATCH}, {H}x{W} from "
+          f"{len(records)} UOAIS-Sim-layout records: total loss {totals}; host read + augment "
+          f"+ pack {host_s / FILE_STEPS:.3f} s a batch on {card}")
+    if not all(np.isfinite(v) for m in losses for v in m.values()):
+        raise AssertionError("phase 22(b): a loss is not finite")
+    del state
+    torch.cuda.empty_cache()
+    return launches
+
+
+def file_host_targets(params, dev, card):
+    """Phase 22(c): host-target steps, multi-scale (min_size_train 384 and
+    480): every batch one bucket, zero loss weights in every margin."""
+    from quber_tpu_torch.data.datasets import get_dataset
+    from quber_tpu_torch.data.mappers import (PerturbedPanopticMapper, batch_iterator,
+                                              resize_shortest_edge, to_step_layout)
+    from quber_tpu_torch.train.loop import make_train_step
+
+    model_cfg, train_cfg = _file_configs(min_size_train=(384, 480))
+    mapper = PerturbedPanopticMapper(train_cfg, model_cfg)
+    if not mapper.multiscale:
+        raise AssertionError("phase 22(c): the mapper is not multi-scale")
+    batches = batch_iterator(get_dataset("uoais_sim_train_panoptic"), mapper, BATCH,
+                             seed=train_cfg.seed)
+    state = _file_state(params, model_cfg, train_cfg, dev)
+    step = make_train_step(model_cfg)
+    shapes, margins = [], []
+    for i in range(2):
+        batch = next(batches)
+        ph, pw = batch["image"].shape[1:3]
+        shapes.append((ph, pw))
+        # each sample's resized extent: the non-zero rows and columns of its
+        # colour image sit inside it, its weights must vanish outside
+        for b in range(BATCH):
+            rows = np.nonzero(batch["image"][b, :, :, :3].any(axis=(1, 2)))[0]
+            cols = np.nonzero(batch["image"][b, :, :, :3].any(axis=(0, 2)))[0]
+            rh, rw = rows.max() + 1, cols.max() + 1
+            margins.append((ph - rh) * pw + (pw - rw) * rh)
+            for key in ("sem_seg_weights", "center_weights", "offset_weights"):
+                w = batch[key][b]
+                if w[rh:].any() or w[:, rw:].any():
+                    raise AssertionError(f"phase 22(c): {key} is not zero in the margin")
+        _, metrics = step(state, to_step_layout(batch, dev))
+        total = float(metrics["total_loss"])
+        if not np.isfinite(total):
+            raise AssertionError("phase 22(c): the loss is not finite")
+        print(f"phase 22(c): host-target step {i + 1} at bucket {ph}x{pw}: total loss "
+              f"{total:.6f}")
+    expected = {resize_shortest_edge(H, W, s, train_cfg.max_size_train) for s in (384, 480)}
+    print(f"phase 22(c): buckets {shapes} (resized shapes of the grid {sorted(expected)}), "
+          f"zero weights in every margin (margin pixels per sample {sorted(set(margins))}) "
+          f"on {card}")
+    del state
+    torch.cuda.empty_cache()
+
+
+def file_workers(card):
+    """Phase 22(d): two worker processes give the in-process loader's first
+    batches (augmentation off)."""
+    from quber_tpu_torch.data.datasets import get_dataset
+    from quber_tpu_torch.data.pipeline import make_dataloader
+    from quber_tpu_torch.train.device_targets import PackedMapper
+
+    model_cfg, train_cfg = _file_configs(color_aug_ssd=False, perlin_distortion=False)
+    records = get_dataset("uoais_sim_train_panoptic")
+    mapper = PackedMapper(train_cfg, model_cfg, TRAIN_SLOTS)
+    inline = make_dataloader(records, mapper, BATCH, seed=train_cfg.seed, worker_count=0)
+    want = [next(inline)["packed"] for _ in range(2)]
+    t0 = time.perf_counter()
+    with make_dataloader(records, mapper, BATCH, seed=train_cfg.seed, worker_count=2) as workers:
+        got = [next(workers)["packed"] for _ in range(2)]
+    if not all(np.array_equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError("phase 22(d): --workers 2 gives other batches than --workers 0")
+    print(f"phase 22(d): 2 workers give the first 2 batches of the in-process loader byte for "
+          f"byte ({time.perf_counter() - t0:.1f} s with the workers' start) on {card}")
+
+
+def _fg_pool(root, model):
+    """Phase 14's frames as (x [N, C, h, w], y [N, h, w]) through
+    train_fg_torch's sample assembly (one flip draw each, seed 7)."""
+    import train_fg_torch
+
+    load = train_fg_torch.SampleCache(model)
+    rng = np.random.default_rng(7)
+    xs, ys = zip(*(load(p, rng) for p in train_fg_torch.list_samples(root)))
+    return torch.from_numpy(np.stack(xs)).permute(0, 3, 1, 2), torch.from_numpy(np.stack(ys))
+
+
+def _fg_pool_loss(model, xs, ys, dev):
+    """Mean training-mode loss over the pool (batch statistics), the running
+    statistics left as they were."""
+    import copy
+
+    from quber_tpu_torch.train.fg_train import weighted_ce_loss
+
+    probe = copy.deepcopy(model).train()
+    with torch.no_grad():
+        return statistics.mean(
+            float(weighted_ce_loss(probe(xs[i:i + BATCH].to(dev)), ys[i:i + BATCH].to(dev)))
+            for i in range(0, len(xs), BATCH))
+
+
+def fg_training(root, params, dev, card, work):
+    """Phase 22(e): CGNet and LMFFNet trained for FG_STEPS steps each at
+    batch 8 on phase 14's frames; one step on the card against the CPU; a
+    saved CGNet checkpoint through $QUBER_CGNET_CKPT into a filtered frame."""
+    import train_fg_torch
+
+    from quber_tpu_torch.evaluation.base_models import GT
+    from quber_tpu_torch.evaluation.datasets import build_file_lists
+    from quber_tpu_torch.evaluation.refiner_models import build_refiner_model
+    from quber_tpu_torch.models.cgnet import CGNet
+    from quber_tpu_torch.models.from_jax import state_dict_to_jax
+    from quber_tpu_torch.train.checkpoint import save_params
+    from quber_tpu_torch.train.fg_train import create_fg_train_state, fg_train_step
+
+    ckpt = os.path.join(work, "fg_cgnet")
+    for name in ("cgnet", "lmffnet"):
+        t0 = time.perf_counter()
+        xs, ys = _fg_pool(root, name)
+        read_s = time.perf_counter() - t0
+        # one step from the same init on the card and on the CPU
+        grads, loss = {}, {}
+        for device in (dev, torch.device("cpu")):
+            state = create_fg_train_state(train_fg_torch.build_model(name), seed=3,
+                                          device=device)
+            loss[device.type] = float(fg_train_step(state, xs[:FG_CPU_BATCH].to(device),
+                                                    ys[:FG_CPU_BATCH].to(device))["loss"])
+            grads[device.type] = {n: p.grad.detach().cpu().double()
+                                  for n, p in state.model.named_parameters()}
+        worst = min((float(torch.nn.functional.cosine_similarity(
+            g.flatten(), grads["cuda"][n].flatten(), dim=0)), n) for n, g in grads["cpu"].items())
+        print(f"phase 22(e): {name} one step at batch {FG_CPU_BATCH} card against CPU: loss {loss['cuda']:.6f} / "
+              f"{loss['cpu']:.6f} (rtol {FG_LOSS_RTOL}), gradient cosine min {worst[0]:.6f} at "
+              f"{worst[1]} (need >= {GRAD_COSINE})")
+        if not abs(loss["cuda"] - loss["cpu"]) <= FG_LOSS_RTOL * abs(loss["cpu"]) \
+                or worst[0] < GRAD_COSINE:
+            raise AssertionError(f"phase 22(e): {name} card and CPU disagree")
+
+        state = create_fg_train_state(train_fg_torch.build_model(name), seed=7, device=dev)
+        before = _fg_pool_loss(state.model, xs, ys, dev)
+        order = np.random.RandomState(7)
+        times, losses = [], []
+        for _ in range(FG_STEPS):
+            idx = torch.from_numpy(order.permutation(len(xs))[:BATCH])
+            t0 = time.perf_counter()
+            losses.append(float(fg_train_step(state, xs[idx].to(dev), ys[idx].to(dev))["loss"]))
+            times.append(time.perf_counter() - t0)
+        after = _fg_pool_loss(state.model, xs, ys, dev)
+        print(f"phase 22(e): {name} {FG_STEPS} steps at batch {BATCH}, {tuple(xs.shape[2:])}: "
+              f"losses {[round(v, 4) for v in losses]}, pool loss {before:.6f} -> {after:.6f}; "
+              f"{statistics.median(times[2:]) * 1e3:.1f} ms a step (median of steps 3-"
+              f"{FG_STEPS}, synchronised), pool of {len(xs)} read in {read_s:.1f} s on {card}")
+        if not all(np.isfinite(losses)) or not after < before:
+            raise AssertionError(f"phase 22(e): {name}'s loss did not fall over the pool")
+        if name == "cgnet":
+            save_params(ckpt, state_dict_to_jax(state.model), step=FG_STEPS)
+        del state
+    os.environ["QUBER_CGNET_CKPT"] = ckpt
+    os.environ.pop("QUBER_LMFFNET_CKPT", None)
+    try:
+        refiner = build_refiner_model("maskrefiner", "OSD", params=params, device="cuda")
+        rgb, depth, _ = build_file_lists("OSD", root)
+        masks = GT("OSD").predict(rgb[0], depth[0])[0]
+        refined, _, _, fg = refiner.predict(rgb[0], depth[0], masks, None)
+    finally:
+        del os.environ["QUBER_CGNET_CKPT"]
+    if not isinstance(refiner.fg_predictor.model, CGNet) or fg.shape != (H, W) \
+            or fg.dtype != bool:
+        raise AssertionError("phase 22(e): the saved CGNet did not filter the frame")
+    print(f"phase 22(e): the saved CGNet through $QUBER_CGNET_CKPT filtered frame 1: foreground "
+          f"{fg.mean():.4f} of the pixels, {len(refined)} of {len(masks)} instances kept")
+
+
+def file_phase(root, params, dev, card, work):
+    """Phase 22: training from files. Returns the launches of 22(b)."""
+    from quber_tpu_torch.data.datasets import register_standard_datasets
+    from quber_tpu_torch.data.make_uoais_sim import make
+
+    t0 = time.perf_counter()
+    data_root = os.path.join(work, "uoais")
+    make(root, data_root)
+    register_standard_datasets(data_root)
+    print(f"phase 22(a): {EVAL_FRAMES} frames to a UOAIS-Sim panoptic set (detection2panoptic, "
+          f"Felzenszwalb-seeded perturbate_masks, panoptic2eee) in "
+          f"{time.perf_counter() - t0:.1f} s")
+    launches = file_device_targets(params, dev, card)
+    file_host_targets(params, dev, card)
+    file_workers(card)
+    fg_training(root, params, dev, card, work)
+    return launches
+
+
 _T0 = time.perf_counter()
 
 
@@ -1880,6 +2160,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         ucn_launches = ucn_phase(root, params, frames, dev, card, work)
         _elapsed("phase 21")
+        torch.cuda.empty_cache()
+        file_launches = file_phase(root, params, dev, card, work)
+        _elapsed("phase 22")
     # the serving shapes' entries: launches on the single-frame CLI path
     # (predict, K = 24) and on the benchmark's batches of 16
     for row in rows:
@@ -1900,6 +2183,9 @@ def main() -> int:
         row["ucn_eval"] = {"launches_per_image": ucn_launches[0][name],
                            "launches_streamed": ucn_launches[1][name],
                            "path": f"run_eval, base ucn, {EVAL_FRAMES} frames"}
+        # the launches of the device-target steps from files (phase 22(b))
+        row["file_train"] = {"launches": file_launches[name],
+                             "path": f"{FILE_STEPS} device-target steps from UOAIS-Sim files"}
 
     steady = times[1:]
     med = statistics.median(steady)

@@ -10,8 +10,10 @@ resize is OpenCV's kernel (a = -0.75, half-pixel centres, replicated
 border) written out as two matrix products, and erode / dilate / close are
 scipy.ndimage rank filters with OpenCV's default borders (erosion does not
 erode from the border of the array it is given, dilation sees background
-outside). The flow seeded by Felzenszwalb proposals of the RGB image waits
-for the file-backed data slice.
+outside). `perturb_masks_reference` is the reference's flow seeded by
+Felzenszwalb proposals of the RGB image (data/felzenszwalb.py), with its
+per-image ratio sampling; its merge step's 10x10 dilation is
+ops/imgproc.dilate_rect (OpenCV's anchor at 5).
 """
 
 from __future__ import annotations
@@ -297,12 +299,126 @@ def merge_masks(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     return erode3(dilate3(u, 7), 7)
 
 
+# the reference's per-image ratio ranges
+REFERENCE_RATIO_RANGES = {
+    "fp": (0.0, 0.2),
+    "gs": (0.0, 0.3),
+    "merge": (0.0, 0.1),
+    "delete": (0.0, 0.1),
+    "split": (0.0, 0.1),
+}
+MIN_MASK_RATIO = 0.01
+
+
+def _split_by_random_line(mask, rng, min_area, tries=10):
+    """Split a mask by a random axis-aligned line into two parts of at least
+    min_area each; None if no try succeeds."""
+    ys, xs = np.nonzero(mask)
+    if len(ys) == 0:
+        return None
+    y_min, y_max = ys.min(), ys.max()
+    x_min, x_max = xs.min(), xs.max()
+    for _ in range(tries):
+        m1 = mask.copy()
+        if rng.rand() < 0.5:
+            y1 = rng.randint(y_min, max(y_min + 1, y_max))
+            if rng.rand() < 0.5:
+                m1[y1:y_max + 1, :] = 0
+            else:
+                m1[y_min:y1, :] = 0
+        else:
+            x1 = rng.randint(x_min, max(x_min + 1, x_max))
+            if rng.rand() < 0.5:
+                m1[:, x1:x_max + 1] = 0
+            else:
+                m1[:, x_min:x1] = 0
+        m2 = np.where(m1 != 0, 0, mask)
+        if m1.sum() >= min_area and m2.sum() >= min_area:
+            return m1, m2
+    return None
+
+
+def perturb_masks_reference(gt_masks: np.ndarray, rgb: np.ndarray, rng=None,
+                            iou_target=(0.8, 1.0),
+                            proposals: np.ndarray | None = None) -> np.ndarray:
+    """The reference's perturbation flow: false positives and over- /
+    under-segmentations from Felzenszwalb proposals of `rgb` (uint8 [H, W,
+    3]; ignored when `proposals` is given), GT masks not yet represented,
+    merges of adjacent pairs, axis-aligned splits, deletions and boundary
+    jitter to the IoU target, each at a ratio drawn per image. gt_masks
+    [N, H, W] {0, 1}; returns a uint8 stack."""
+    from quber_tpu_torch.data.felzenszwalb import felzenszwalb_proposals
+    from quber_tpu_torch.ops.imgproc import dilate_rect
+
+    rng = rng or np.random.RandomState(0)
+    gt_masks = np.asarray(gt_masks, np.uint8)
+    if gt_masks.size == 0:
+        return gt_masks.reshape((0,) + rgb.shape[:2])
+    h, w = gt_masks.shape[1:]
+    min_area = h * w * MIN_MASK_RATIO
+    r = {k: rng.uniform(*v) for k, v in REFERENCE_RATIO_RANGES.items()}
+    if proposals is None:
+        proposals = felzenszwalb_proposals(rgb, scale=4, sigma=0.2, k=50, min_size=50)
+
+    out = []
+    max_gt_area = max(int(m.sum()) for m in gt_masks)
+    for gs in proposals:  # false positives: proposals away from every GT mask
+        if rng.rand() > r["fp"]:
+            continue
+        area = gs.sum()
+        if area < min_area or area > max_gt_area * 2.0:
+            continue
+        if max((mask_iou(g, gs) for g in gt_masks), default=0.0) < 0.3:
+            out.append(gs.astype(np.uint8))
+    for gs in proposals:  # over- / under-segmentation: proposals on a GT mask
+        if rng.rand() > r["gs"]:
+            continue
+        if gs.sum() < min_area:
+            continue
+        if max((mask_iou(g, gs) for g in gt_masks), default=0.0) > 0.3:
+            out.append(gs.astype(np.uint8))
+    for g in gt_masks:  # GT masks no proposal stands for yet
+        if max((mask_iou(g, p) for p in out), default=0.0) < 0.3:
+            out.append(g.copy())
+
+    for i in range(len(out)):  # merge pairs within a 10x10 dilation
+        if rng.rand() > r["merge"]:
+            continue
+        m1 = out[i]
+        if m1.sum() == 0:
+            continue
+        dil = dilate_rect(m1, 10)
+        for j in range(len(out)):
+            if i == j or out[j].sum() == 0:
+                continue
+            if int((dil & (out[j] > 0)).sum()) > 0:
+                out[i] = ((m1 > 0) | (out[j] > 0)).astype(np.uint8)
+                out[j] = np.zeros_like(out[j])
+    out = [m for m in out if m.sum() > 0]
+
+    for i in range(len(out)):  # split by a random axis-aligned line
+        if rng.rand() > r["split"]:
+            continue
+        pieces = _split_by_random_line(out[i], rng, min_area)
+        if pieces is not None:
+            out[i] = pieces[0]
+            out.append(pieces[1])
+
+    out = [m for m in out if rng.rand() > r["delete"]]
+    out = [modify_boundary(m, rng, iou_target) for m in out]
+    out = [m for m in out if m.sum() > 0]
+    return np.asarray(out, np.uint8) if out else np.zeros((0, h, w), np.uint8)
+
+
 def perturb_masks(masks: np.ndarray, rng=None, target_iou=(0.8, 1.0),
-                  ratios: dict | None = None) -> np.ndarray:
+                  ratios: dict | None = None, rgb: np.ndarray | None = None) -> np.ndarray:
     """Apply the corruption pipeline to a GT mask stack [N, H, W]: FP add ->
     over-/under-segmentation -> delete -> per-mask boundary jitter to the IoU
-    target. Returns a (possibly different-length) uint8 stack."""
+    target. Returns a (possibly different-length) uint8 stack. With `rgb`,
+    the reference flow (perturb_masks_reference) runs instead."""
     rng = rng or np.random.RandomState(0)
+    if rgb is not None:
+        return perturb_masks_reference(np.asarray(masks), rgb, rng, iou_target=target_iou)
     ratios = {**DEFAULT_RATIOS, **(ratios or {})}
     masks = [m.astype(np.uint8) for m in masks]
     if not masks:

@@ -169,25 +169,33 @@ class DevicePool:
 
 
 class PackedMapper:
-    """Light host mapper of the device-target path: normalise the depth,
-    decode the perturbed masks, bitpack both stacks, and leave every target
-    to the device. In-memory synthetic records only; records that name
-    files on disk wait for the file-backed data slice."""
+    """Light host mapper of the device-target path: decode and augment the
+    images, bitpack both mask stacks, and leave every target to the device.
 
-    def __init__(self, train_cfg, model_cfg, n_slots: int = 32):
+    Takes file-backed dataset records (PerturbedPanopticMapper's image
+    pipeline at the model's fixed shape: SSD colour augmentation, Perlin
+    depth distortion, mm-range depth normalisation, drawn from one
+    RandomState in the reference's order) and the in-memory synthetic
+    records of train_net_torch.py (no augmentation)."""
+
+    def __init__(self, train_cfg, model_cfg, n_slots: int = 32, is_train=True, seed: int = 0):
         self.tc = train_cfg
         self.mc = model_cfg
         self.n_slots = n_slots
+        self.is_train = is_train
+        self.rng = np.random.RandomState(seed)
 
     def __call__(self, record: dict) -> dict:
         from quber_tpu_torch.data import rle
-        from quber_tpu_torch.data.mappers import normalize_depth_mm
+        from quber_tpu_torch.data.mappers import normalize_depth_mm, read_record
 
-        if "rgb" not in record:
-            raise NotImplementedError(
-                "file-backed records (image decode, colour and Perlin augmentation) are not "
-                "ported yet: ROADMAP.md Queue 1 item 11b")
-        depth_n = normalize_depth_mm(record["depth_mm"], self.tc.depth_range)
-        pert = np.asarray([rle.decode(r) for r in record["perturbed_segmentation"]])
-        return {"packed": pack_train_sample(np.asarray(record["rgb"]), depth_n,
-                                            np.asarray(record["gt_masks"]), pert, self.n_slots)}
+        if "rgb" in record:  # a synthetic in-memory record
+            rgb = np.asarray(record["rgb"])
+            depth_n = normalize_depth_mm(record["depth_mm"], self.tc.depth_range)
+            gt_masks = np.asarray(record["gt_masks"])
+            pert = np.asarray([rle.decode(r) for r in record["perturbed_segmentation"]])
+        else:
+            h, w = self.mc.height, self.mc.width
+            rgb, depth_n, gt_masks, pert = read_record(record, lambda *_: (h, w), self.tc,
+                                                       self.rng, augment=self.is_train)
+        return {"packed": pack_train_sample(rgb, depth_n, gt_masks, pert, self.n_slots)}

@@ -92,3 +92,70 @@ def build_optimizer(train_cfg, model: nn.Module, extra_freeze: Callable | None =
     else:
         raise ValueError(train_cfg.optimizer)
     return optimizer, schedule
+
+
+def _pow_f32(base: float, n: int):
+    """base ** n in float32 by square-and-multiply."""
+    import numpy as np
+
+    out, b = np.float32(1.0), np.float32(base)
+    while n:
+        if n & 1:
+            out = np.float32(out * b)
+        b = np.float32(b * b)
+        n >>= 1
+    return out
+
+
+class RAdam(torch.optim.Optimizer):
+    """Rectified Adam as optax.radam computes it (Liu et al., 2020).
+
+    torch.optim.RAdam differs: it adds eps to sqrt(nu) before the second
+    moment's bias correction, optax after. Here, per leaf and step t:
+    mu = (1 - b1) g + b1 mu, nu = (1 - b2) g^2 + b2 nu, the bias-corrected
+    mu_hat and nu_hat, rho_t = rho_inf - 2 t b2^t / (1 - b2^t), and the
+    update -lr * r_t mu_hat / (sqrt(nu_hat) + eps) once rho_t >= threshold
+    (from step 6 for b2 = 0.999: rho_5 ~ 4.996, rho_6 ~ 5.99), else -lr *
+    mu_hat. The step's scalars are float32, as JAX computes them (b^t by
+    square-and-multiply, as XLA raises a float to an integer power)."""
+
+    def __init__(self, params, lr: float = 1e-3, betas=(0.9, 0.999), eps: float = 1e-8,
+                 threshold: float = 5.0):
+        super().__init__(params, dict(lr=lr, betas=betas, eps=eps, threshold=threshold))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        import numpy as np
+
+        f32 = np.float32
+        for group in self.param_groups:
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:
+                continue
+            b1, b2 = group["betas"]
+            for p in params:
+                if not self.state[p]:
+                    self.state[p].update(step=0, mu=torch.zeros_like(p), nu=torch.zeros_like(p))
+                self.state[p]["step"] += 1
+            grads = [p.grad for p in params]
+            mus = [self.state[p]["mu"] for p in params]
+            nus = [self.state[p]["nu"] for p in params]
+            # each moment as (1 - b) * g (g^2) + b * m, rounded as optax rounds it
+            torch._foreach_mul_(mus, b1)
+            torch._foreach_add_(mus, torch._foreach_mul(grads, 1 - b1))
+            torch._foreach_mul_(nus, b2)
+            torch._foreach_add_(nus, torch._foreach_mul(torch._foreach_mul(grads, grads), 1 - b2))
+            t = self.state[params[0]]["step"]
+            rho_inf = f32(2.0 / (1.0 - b2) - 1.0)
+            b2t = _pow_f32(b2, t)
+            rho = f32(rho_inf - f32(2 * t) * b2t / (f32(1) - b2t))
+            update = torch._foreach_div(mus, float(f32(1) - _pow_f32(b1, t)))
+            if rho >= group["threshold"]:
+                r = np.sqrt(f32((rho - 4) * (rho - 2) * rho_inf
+                                / ((rho_inf - 4) * (rho_inf - 2) * rho)))
+                denom = torch._foreach_sqrt(torch._foreach_div(nus, float(f32(1) - b2t)))
+                torch._foreach_add_(denom, group["eps"])
+                torch._foreach_mul_(update, float(r))
+                torch._foreach_div_(update, denom)
+            torch._foreach_add_(params, torch._foreach_mul(update, -group["lr"]))
+        return None

@@ -68,16 +68,11 @@ def main(argv=None):
     else:
         device = "cpu"
 
-    from quber_tpu_torch.config import load_config
+    from quber_tpu_torch.config import load_any_config
     from quber_tpu_torch.evaluation.harness import run_eval
     from quber_tpu_torch.train.checkpoint import load_eval_params
 
-    with open(args.config_file) as f:
-        native = args.config_file.startswith("configs/") or "model:" in f.read()
-    if not native:
-        raise NotImplementedError("detectron2-format configs wait for ROADMAP.md Queue 1 "
-                                  "item 11b")
-    model_cfg, _ = load_config(args.config_file)
+    model_cfg, _ = load_any_config(args.config_file)
 
     params = load_eval_params(args.weights_file) if args.weights_file else None
 

@@ -2,7 +2,9 @@
 a fresh interpreter in which importing any of them fails imports every
 module of quber_tpu_torch and the port's scripts, and runs run_eval (the
 foreground filter included), predict_torch.py and demo_torch.py on one small
-frame on the CPU."""
+frame on the CPU, and the file-backed training path (the offline tools, the
+mapper with its augmentation, one step of train_net_torch.py and of
+train_fg_torch.py)."""
 
 import os
 import subprocess
@@ -21,7 +23,7 @@ SCRIPT = textwrap.dedent("""
     import quber_tpu_torch
     names = [m.name for m in pkgutil.walk_packages(quber_tpu_torch.__path__, "quber_tpu_torch.")]
     for name in names + ["run_eval_torch", "train_net_torch", "chip_smoke", "bench_torch",
-                         "predict_torch", "demo_torch"]:
+                         "predict_torch", "demo_torch", "train_zoo_torch", "train_fg_torch"]:
         importlib.import_module(name)
 
     from quber_tpu_torch.data.make_synthetic_dataset import main as make_dataset
@@ -52,6 +54,23 @@ SCRIPT = textwrap.dedent("""
                                    tmp + "/masks.npy", "--out", tmp + "/p.png"] + common) == 0
         assert demo_torch.main(["--input", rgb, "--depth-dir", tmp + "/osd/disparity",
                                 "--output", tmp + "/vis"] + common) == 0
+        # training from files: the tools, the mapper with SSD colour and
+        # Perlin, a device-target step and a foreground step
+        import train_fg_torch
+        import train_net_torch
+        from quber_tpu_torch.data.make_uoais_sim import make as make_uoais
+
+        make_uoais(tmp + "/osd", tmp + "/uoais")
+        with open(tmp + "/tiny.yaml", "w") as f:
+            f.write("model:\\n  height: 32\\n  width: 32\\n  resnet_depth: 14\\n"
+                    "train:\\n  batch_size: 1\\n  max_iter: 1\\n")
+        train_net_torch.main(["--config-file", tmp + "/tiny.yaml", "--dataset",
+                              "uoais_sim_train_panoptic", "--data-root", tmp + "/uoais",
+                              "--device-targets", "--device", "cpu", "--output-dir",
+                              tmp + "/train"])
+        assert train_fg_torch.main(["--model", "cgnet", "--dataset-path", tmp + "/osd",
+                                    "--max-iter", "1", "--batch", "1", "--device", "cpu",
+                                    "--output-dir", tmp + "/fg"]) == 0
     bad = [m for m in ("cv2", "imageio", "PIL", "jax", "quber_tpu") if sys.modules.get(m)]
     assert not bad, bad
     print("OK", len(names))

@@ -251,13 +251,16 @@ def test_pack_and_unpack_match_jax(n_slots):
     assert all(torch.equal(a, b[1]) for a, b in zip(one, (image, gt, gv, pert, pv)))
 
 
-def test_pack_rejects_what_cannot_be_bitpacked():
+def test_pack_rejects_what_cannot_be_bitpacked(tmp_path):
     with pytest.raises(ValueError):
         TDT.pack_train_sample(np.zeros((5, 5, 3)), np.zeros((5, 5)), [], [], 4)
     with pytest.raises(ValueError):
         TDT.unpack_train_sample(torch.zeros(2, 100, dtype=torch.uint8), 8, 8, 4)
+    # file records are read since the file-backed slice; a JPEG still waits
+    jpeg = tmp_path / "a.jpg"
+    jpeg.write_bytes(b"\xff\xd8\xff\xe0" + bytes(64))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TDT.PackedMapper(TrainConfig(), MaskRefinerConfig(), 4)({"file_name": "a.png"})
+        TDT.PackedMapper(TrainConfig(), MaskRefinerConfig(), 4)({"file_name": str(jpeg)})
 
 
 @pytest.mark.parametrize("error_type,h,w", [("e2", 64, 64), ("e3", 120, 160)])

@@ -585,10 +585,16 @@ def test_train_net_torch_routes_see_the_same_losses(scratch, capsys):
     (["--multihost", "--space", "2"], "item 12"),
     ([], "item 11b"),  # without --synthetic there is nothing to train on
 ])
-def test_train_net_torch_cli_names_what_waits(flags, item):
+def test_train_net_torch_cli_names_what_waits(flags, item, tmp_path):
     import train_net_torch
 
-    argv = flags + (["--synthetic"] if flags else [])
+    if item == "item 11b":
+        # done: these flags (and training without --synthetic) now read the
+        # registered dataset under --data-root, here a directory without one
+        with pytest.raises(FileNotFoundError, match="UOAIS-Sim"):
+            train_net_torch.main(flags + ["--data-root", str(tmp_path), "--device", "cpu"])
+        return
+    argv = flags + ["--synthetic"]
     with pytest.raises(SystemExit) as exc:
         train_net_torch.main(argv + ["--device", "cpu"])
     assert "ROADMAP.md" in str(exc.value) and item in str(exc.value)

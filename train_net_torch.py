@@ -1,23 +1,32 @@
 """QuBER training entry point of the PyTorch/CUDA port (one GPU).
 
-    python3 train_net_torch.py --synthetic --device-targets \
+    python3 train_net_torch.py --dataset uoais_sim_train_panoptic --data-root datasets \
         --config-file configs/mask_refiner_rgbd_concat_l2_gn_hf_m_b_f_c_o_l3_e2_b8.yaml \
-        --output-dir output/flagship [--resume] [--max-iter N]
+        --output-dir output/flagship [--device-targets] [--workers N] [--resume] [--max-iter N]
+    python3 train_net_torch.py --synthetic --device-targets ...
 
-Counterpart of train_net.py for quber_tpu_torch: Adam + WarmupPolyLR on
-rendered synthetic scenes, checkpoints under <output-dir>/ckpt. With
---device-targets the host only bitpacks the masks and the device rebuilds
-every target inside the step; the packed scenes then live on the device and
+Counterpart of train_net.py for quber_tpu_torch: Adam + WarmupPolyLR on a
+registered dataset on disk under --data-root (data/datasets.py: the
+UOAIS-Sim, TOD and ARMBench layouts; the images read, augmented and turned
+into targets by data/mappers.PerturbedPanopticMapper, multi-scale when the
+config's min_size_train has several sizes, one bucket shape a batch) or on
+rendered synthetic scenes (--synthetic), checkpoints under
+<output-dir>/ckpt. The config is a native YAML, a detectron2-format YAML or
+an ablation-grid name. With --device-targets the host only reads, augments
+and bitpacks (train/device_targets.PackedMapper) and the device rebuilds
+every target inside the step; synthetic scenes then live on the device and
 each batch is gathered there by a shuffled index (--no-data-device-cache
-feeds them from the host instead). With --eval-dataset, every eval_period
-steps the current weights are evaluated on --eval-limit frames of that
-dataset (perturbed GT refined without the foreground filter, run_eval_torch's
-harness) and the row goes into <output-dir>/eval.csv tagged train-eval@<it>.
+feeds them from the host instead). --workers N maps the records in N
+worker processes (data/pipeline.py). With --eval-dataset, every
+eval_period steps the current weights are evaluated on --eval-limit frames
+of that dataset (perturbed GT refined without the foreground filter,
+run_eval_torch's harness) and the row goes into <output-dir>/eval.csv
+tagged train-eval@<it>. At the end a [timing] line gives seconds a step,
+the host's wait for batches and the device's idle share between steps.
 Runs on the GPU unless --device cpu.
 
 Not ported yet (each exits with a message naming its item in ROADMAP.md):
-training on datasets on disk (--dataset), --workers, --space and
---multihost.
+--space and --multihost.
 """
 
 import argparse
@@ -27,8 +36,6 @@ import time
 
 # flag -> where ROADMAP.md queues the part of training it needs
 _WAITING = {
-    "dataset": "Queue 1 item 11b (file-backed mappers and augmentation)",
-    "workers": "Queue 1 item 11b (worker processes for the file-backed loader)",
     "space": "Queue 1 item 12 (data parallel and spatial partitioning)",
     "multihost": "Queue 1 item 12 (data parallel)",
 }
@@ -65,6 +72,9 @@ def main(argv=None):
                         default="configs/mask_refiner_rgbd_concat_l2_gn_hf_m_b_f_c_o_l3_e2_b8.yaml")
     parser.add_argument("--output-dir", default=None)
     parser.add_argument("--resume", action="store_true")
+    parser.add_argument("--weights-file", default=None,
+                        help="start from these weights (an int8 .npz or a checkpoint "
+                             "directory) instead of the seeded initialisation")
     parser.add_argument("--max-iter", type=int, default=None)
     parser.add_argument("--checkpoint-period", type=int, default=None)
     parser.add_argument("--log-period", type=int, default=20)
@@ -89,8 +99,10 @@ def main(argv=None):
                         help="feed --synthetic --device-targets batches from the host "
                              "instead of a device-resident pool")
     parser.add_argument("--device", default="cuda")
-    parser.add_argument("--dataset", default=None)
-    parser.add_argument("--workers", type=int, default=0)
+    parser.add_argument("--dataset", default="uoais_sim_train_panoptic")
+    parser.add_argument("--data-root", default="datasets")
+    parser.add_argument("--workers", type=int, default=0,
+                        help="worker processes of the data loader (0: in-process)")
     parser.add_argument("--space", type=int, default=1)
     parser.add_argument("--multihost", action="store_true")
     parser.add_argument("--eval-dataset", default=None,
@@ -102,14 +114,12 @@ def main(argv=None):
     for flag, item in _WAITING.items():
         if getattr(args, flag) != parser.get_default(flag):
             raise SystemExit(f"--{flag.replace('_', '-')} is not ported yet: ROADMAP.md {item}")
-    if not args.synthetic:
-        raise SystemExit("only --synthetic training is ported: ROADMAP.md " + _WAITING["dataset"])
-
     import numpy as np
     import torch
 
-    from quber_tpu_torch.config import load_config
-    from quber_tpu_torch.data.mappers import batch_iterator
+    from quber_tpu_torch.config import load_any_config
+    from quber_tpu_torch.data.mappers import PerturbedPanopticMapper, to_step_layout
+    from quber_tpu_torch.data.pipeline import make_dataloader
     from quber_tpu_torch.data.synthetic import synthetic_records
     from quber_tpu_torch.train.checkpoint import restore_state, save_state
     from quber_tpu_torch.train.device_targets import (
@@ -124,7 +134,7 @@ def main(argv=None):
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
 
-    model_cfg, train_cfg = load_config(args.config_file)
+    model_cfg, train_cfg = load_any_config(args.config_file)
     if args.height or args.width:
         model_cfg = dataclasses.replace(model_cfg, height=args.height or model_cfg.height,
                                         width=args.width or model_cfg.width)
@@ -140,44 +150,87 @@ def main(argv=None):
     ckpt_dir = os.path.join(output_dir, "ckpt")
     os.makedirs(output_dir, exist_ok=True)
 
-    records = synthetic_records(args.synthetic_size, model_cfg.height, model_cfg.width,
-                                depth_range=train_cfg.depth_range, n_objects=args.n_objects,
-                                shapes=args.shapes)
+    if args.synthetic:
+        records = synthetic_records(args.synthetic_size, model_cfg.height, model_cfg.width,
+                                    depth_range=train_cfg.depth_range,
+                                    n_objects=args.n_objects, shapes=args.shapes)
+    else:
+        from quber_tpu_torch.data.datasets import get_dataset, register_standard_datasets
+
+        register_standard_datasets(args.data_root)
+        records = get_dataset(args.dataset)
+        print(f"{len(records)} records of {args.dataset} under {args.data_root}")
     if args.device_targets:
         mapper = PackedMapper(train_cfg, model_cfg, n_slots=args.target_slots)
         train_step = make_device_target_step(model_cfg, train_cfg, n_slots=args.target_slots)
-    else:
+    elif args.synthetic:
         mapper = SyntheticMapper(train_cfg, model_cfg, n_slots=args.target_slots)
+        train_step = make_train_step(model_cfg)
+    else:
+        mapper = PerturbedPanopticMapper(train_cfg, model_cfg, is_train=True)
         train_step = make_train_step(model_cfg)
 
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     print(f"device: {device} ({name})")
     state = create_train_state(model_cfg, train_cfg, device=device)
+    if args.weights_file:
+        from quber_tpu_torch.models.from_jax import as_state_dict
+        from quber_tpu_torch.train.checkpoint import load_eval_params
+
+        state.model.load_state_dict(as_state_dict(load_eval_params(args.weights_file)),
+                                    strict=True)
+        print(f"weights from {args.weights_file}")
     if args.resume and restore_state(ckpt_dir, state) is not None:
         print(f"resumed at step {state.step}")
 
-    if args.device_targets and not args.no_data_device_cache:
+    batches = None
+    if args.synthetic and args.device_targets and not args.no_data_device_cache:
         packed = np.stack([mapper(r)["packed"] for r in records])
         next_batch = DevicePool(packed, train_cfg.batch_size, train_cfg.seed, device).next_batch
     else:
-        batches = batch_iterator(records, mapper, train_cfg.batch_size, seed=train_cfg.seed)
+        batches = make_dataloader(records, mapper, train_cfg.batch_size, seed=train_cfg.seed,
+                                  worker_count=args.workers)
 
         def next_batch():
-            batch = {k: torch.from_numpy(v).to(device) for k, v in next(batches).items()}
-            return batch["packed"] if args.device_targets else batch
+            batch = next(batches)
+            if args.device_targets:
+                return torch.from_numpy(batch["packed"]).to(device)
+            if args.synthetic:
+                return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+            return to_step_layout(batch, device)
 
     t0 = time.time()
     timed = None  # steps since t0; None until the first step is done
+    # after the first step: host seconds waiting for batches, wall seconds,
+    # and the device's seconds from each step's first enqueue to its last
+    # (CUDA events), whose shortfall against the wall is the device's idle
+    # share between steps
+    wait_s = excluded_s = 0.0
+    events = []
+    n_timed = 0
+    t_start = None
     for it in range(state.step, train_cfg.max_iter):
-        state, metrics = train_step(state, next_batch())
+        t_wait = time.perf_counter()
+        batch = next_batch()
+        t_ready = time.perf_counter()
+        if device.type == "cuda" and timed is not None:
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+        state, metrics = train_step(state, batch)
+        if device.type == "cuda" and timed is not None:
+            end.record()
+            events.append((start, end))
         if timed is None:
             # the first step carries the kernels' build and cuDNN's set-up
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
             print(f"[timing] first_step_s={time.time() - t0:.1f}", flush=True)
             t0, timed = time.time(), 0
+            t_start = time.perf_counter()
         else:
             timed += 1
+            n_timed += 1
+            wait_s += t_ready - t_wait
         if (it + 1) % args.log_period == 0 or it + 1 == train_cfg.max_iter:
             metrics = {k: float(v) for k, v in metrics.items()}  # waits for the device
             rate = f" ({timed / (time.time() - t0):.2f} it/s)" if timed else ""
@@ -185,10 +238,15 @@ def main(argv=None):
             print(f"iter {it + 1}/{train_cfg.max_iter} "
                   + " ".join(f"{k}={v:.4f}" for k, v in sorted(metrics.items())) + rate,
                   flush=True)
-        if (it + 1) % train_cfg.checkpoint_period == 0 or it + 1 == train_cfg.max_iter:
+        save = (it + 1) % train_cfg.checkpoint_period == 0 or it + 1 == train_cfg.max_iter
+        evaluate = args.eval_dataset and (it + 1) % train_cfg.eval_period == 0
+        if (save or evaluate) and device.type == "cuda":
+            torch.cuda.synchronize(device)
+        t_aside = time.perf_counter()  # checkpoints and evaluations are no step's time
+        if save:
             save_state(ckpt_dir, state)
             print(f"checkpoint saved at {it + 1}")
-        if args.eval_dataset and (it + 1) % train_cfg.eval_period == 0:
+        if evaluate:
             from quber_tpu_torch.evaluation.harness import run_eval
 
             # a predictor of its own from a copy of the weights: the trainer's
@@ -199,6 +257,19 @@ def main(argv=None):
                      config=model_cfg, params=state.model.state_dict(),
                      limit=args.eval_limit, csv_path=os.path.join(output_dir, "eval.csv"),
                      tag=f"train-eval@{it + 1}", device=device)
+        excluded_s += time.perf_counter() - t_aside
+    if batches is not None and hasattr(batches, "close"):
+        batches.close()
+    if n_timed:
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        wall_s = time.perf_counter() - t_start - excluded_s
+        line = (f"[timing] steps={n_timed} s_per_step={wall_s / n_timed:.4f} "
+                f"host_wait_s_per_step={wait_s / n_timed:.4f}")
+        if events:
+            busy_s = sum(a.elapsed_time(b) for a, b in events) / 1e3
+            line += f" device_s_per_step={busy_s / n_timed:.4f} idle_share={1 - busy_s / wall_s:.4f}"
+        print(line + f" workers={args.workers}", flush=True)
 
 
 if __name__ == "__main__":
