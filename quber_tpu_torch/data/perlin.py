@@ -1,7 +1,7 @@
 """Perlin-style depth distortion (sensor-noise simulation).
 
 Port of quber_tpu/data/perlin.py: smooth noise fields from bicubically
-upsampled random lattices (ops/imgproc.resize_cubic_f32 for OpenCV's
+upsampled random lattices (ops/imgproc.resize_cubic for OpenCV's
 INTER_CUBIC) warp the depth map as a flow field (ops/imgproc.remap_nearest
 for cv2.remap INTER_NEAREST with a replicated border) and add to it. The
 draws come from the caller's RandomState in the reference's order.
@@ -11,13 +11,13 @@ from __future__ import annotations
 
 import numpy as np
 
-from quber_tpu_torch.ops.imgproc import remap_nearest, resize_cubic_f32
+from quber_tpu_torch.ops.imgproc import remap_nearest, resize_cubic
 
 
 def value_noise(rng, h: int, w: int, res: int = 8) -> np.ndarray:
     """Smooth noise in [-1, 1] from a (res + 1) x (res + 1) lattice."""
     lattice = rng.rand(res + 1, res + 1).astype(np.float32) * 2 - 1
-    return resize_cubic_f32(lattice, (h, w))
+    return resize_cubic(lattice, (h, w))
 
 
 def perlin_distortion(depth: np.ndarray, rng=None, warp_scale: float = 20.0,

@@ -1,19 +1,15 @@
 """Mask perturbation: controlled error injection for refiner training data
-(numpy + scipy.ndimage).
+(numpy).
 
 Port of the image-free flow of quber_tpu/data/perturb.py: a false-positive
 blob, over- and under-segmentation, deletion, and boundary jitter toward a
 target IoU, with the same draws from the same generator. The reference's
 helpers call OpenCV; here the filled ellipse is `cv2.ellipse`'s own
-rasterisation (`fill_ellipse`, pixel for pixel), the bicubic
-resize is OpenCV's kernel (a = -0.75, half-pixel centres, replicated
-border) written out as two matrix products, and erode / dilate / close are
-scipy.ndimage rank filters with OpenCV's default borders (erosion does not
-erode from the border of the array it is given, dilation sees background
-outside). `perturb_masks_reference` is the reference's flow seeded by
-Felzenszwalb proposals of the RGB image (data/felzenszwalb.py), with its
-per-image ratio sampling; its merge step's 10x10 dilation is
-ops/imgproc.dilate_rect (OpenCV's anchor at 5).
+rasterisation (`fill_ellipse`, pixel for pixel), and the bicubic resize and
+erode / dilate / close are the port's OpenCV copies in ops/imgproc
+(`resize_cubic`, `erode_rect`, `dilate_rect`). `perturb_masks_reference` is
+the reference's flow seeded by Felzenszwalb proposals of the RGB image
+(data/felzenszwalb.py), with its per-image ratio sampling.
 """
 
 from __future__ import annotations
@@ -21,7 +17,8 @@ from __future__ import annotations
 import math
 
 import numpy as np
-from scipy import ndimage
+
+from quber_tpu_torch.ops.imgproc import dilate_rect, erode_rect, resize_cubic
 
 DEFAULT_RATIOS = {
     "fp": 0.15,        # add a spurious instance
@@ -30,42 +27,6 @@ DEFAULT_RATIOS = {
     "delete": 0.05,    # drop an instance entirely
     "boundary": 1.0,   # boundary jitter applied to every surviving mask
 }
-
-
-def _cubic_weights(n_out: int, n_in: int) -> np.ndarray:
-    """[n_out, n_in] matrix of OpenCV's INTER_CUBIC resize along one axis."""
-    a = -0.75
-    src = (np.arange(n_out) + 0.5) * (n_in / n_out) - 0.5
-    base = np.floor(src).astype(int)
-    t = src - base
-    coeffs = np.stack([
-        ((a * (t + 1) - 5 * a) * (t + 1) + 8 * a) * (t + 1) - 4 * a,
-        ((a + 2) * t - (a + 3)) * t * t + 1,
-        ((a + 2) * (1 - t) - (a + 3)) * (1 - t) * (1 - t) + 1,
-    ], axis=1)
-    coeffs = np.concatenate([coeffs, 1.0 - coeffs.sum(axis=1, keepdims=True)], axis=1)
-    weights = np.zeros((n_out, n_in))
-    rows = np.arange(n_out)
-    for k in range(4):
-        np.add.at(weights, (rows, np.clip(base - 1 + k, 0, n_in - 1)), coeffs[:, k])
-    return weights
-
-
-def resize_cubic(img: np.ndarray, h: int, w: int) -> np.ndarray:
-    """Bicubic resize of a 2-D array to (h, w), OpenCV's convention."""
-    return _cubic_weights(h, img.shape[0]) @ img @ _cubic_weights(w, img.shape[1]).T
-
-
-def erode3(mask: np.ndarray, iterations: int) -> np.ndarray:
-    """`iterations` erosions with a 3x3 all-ones kernel; outside the array
-    counts as foreground (OpenCV's default border for erosion)."""
-    return ndimage.minimum_filter(mask, size=2 * iterations + 1, mode="constant", cval=1)
-
-
-def dilate3(mask: np.ndarray, iterations: int) -> np.ndarray:
-    """`iterations` dilations with a 3x3 all-ones kernel; outside the array
-    counts as background."""
-    return ndimage.maximum_filter(mask, size=2 * iterations + 1, mode="constant", cval=0)
 
 
 # OpenCV's drawing arithmetic (imgproc/src/drawing.cpp): coordinates in
@@ -236,7 +197,7 @@ def random_blob(rng, h, w, area_scale=0.02):
     b = max(8, int(a * rng.uniform(0.4, 1.0)))
     mask = fill_ellipse(h, w, (cx, cy), (a, b), rng.uniform(0, 180))
     # deform with coarse noise thresholding
-    noise = resize_cubic(rng.rand(h // 16 + 1, w // 16 + 1), h, w)
+    noise = resize_cubic(rng.rand(h // 16 + 1, w // 16 + 1), (h, w))
     return ((mask > 0) & (noise > 0.25)).astype(np.uint8)
 
 
@@ -247,10 +208,10 @@ def perturb_seg(mask: np.ndarray, rng, iterations=(1, 6)) -> np.ndarray:
     h, w = mask.shape
     for _ in range(rng.randint(1, 4)):
         it = rng.randint(*iterations)
-        op = erode3 if rng.rand() < 0.5 else dilate3
+        op = erode_rect if rng.rand() < 0.5 else dilate_rect
         y0, x0 = rng.randint(0, h // 2), rng.randint(0, w // 2)
         y1, x1 = rng.randint(y0 + h // 4, h), rng.randint(x0 + w // 4, w)
-        out[y0:y1, x0:x1] = op(out[y0:y1, x0:x1], it)
+        out[y0:y1, x0:x1] = op(out[y0:y1, x0:x1], 3, it)
     return out
 
 
@@ -296,7 +257,7 @@ def split_mask(mask: np.ndarray, rng):
 def merge_masks(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     """Union of two masks, closed with a 15x15 square (dilate, then erode)."""
     u = ((a > 0) | (b > 0)).astype(np.uint8)
-    return erode3(dilate3(u, 7), 7)
+    return erode_rect(dilate_rect(u, 15), 15)
 
 
 # the reference's per-image ratio ranges
@@ -348,7 +309,6 @@ def perturb_masks_reference(gt_masks: np.ndarray, rgb: np.ndarray, rng=None,
     jitter to the IoU target, each at a ratio drawn per image. gt_masks
     [N, H, W] {0, 1}; returns a uint8 stack."""
     from quber_tpu_torch.data.felzenszwalb import felzenszwalb_proposals
-    from quber_tpu_torch.ops.imgproc import dilate_rect
 
     rng = rng or np.random.RandomState(0)
     gt_masks = np.asarray(gt_masks, np.uint8)
@@ -411,14 +371,11 @@ def perturb_masks_reference(gt_masks: np.ndarray, rgb: np.ndarray, rng=None,
 
 
 def perturb_masks(masks: np.ndarray, rng=None, target_iou=(0.8, 1.0),
-                  ratios: dict | None = None, rgb: np.ndarray | None = None) -> np.ndarray:
+                  ratios: dict | None = None) -> np.ndarray:
     """Apply the corruption pipeline to a GT mask stack [N, H, W]: FP add ->
     over-/under-segmentation -> delete -> per-mask boundary jitter to the IoU
-    target. Returns a (possibly different-length) uint8 stack. With `rgb`,
-    the reference flow (perturb_masks_reference) runs instead."""
+    target. Returns a (possibly different-length) uint8 stack."""
     rng = rng or np.random.RandomState(0)
-    if rgb is not None:
-        return perturb_masks_reference(np.asarray(masks), rgb, rng, iou_target=target_iou)
     ratios = {**DEFAULT_RATIOS, **(ratios or {})}
     masks = [m.astype(np.uint8) for m in masks]
     if not masks:

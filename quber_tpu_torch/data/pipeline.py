@@ -12,7 +12,9 @@ buckets never mix in a batch). So with the augmentation off, the batches
 equal batch_iterator's. With it on, each sample's draws come from a
 RandomState seeded by (seed, its position in the stream), so a run is
 reproducible whatever the workers' scheduling, though not equal to the
-in-process iterator's, whose mapper draws from one stream. With
+in-process iterator's, whose mapper draws from one stream. Copy-paste is
+refused: its donor is the sample that the same mapper mapped last, which in
+a pool is whichever the scheduler gave that worker (ROADMAP item 11d). With
 worker_count 0 this is batch_iterator itself. The workers start with
 `spawn`, which imports the caller's main module again: a script that
 makes a loader must guard its entry with `if __name__ == "__main__":`.
@@ -61,6 +63,12 @@ class WorkerLoader:
         from quber_tpu_torch.data.datasets import get_dataset
 
         self._pool = None
+        if getattr(mapper, "is_train", False) and getattr(getattr(mapper, "tc", None),
+                                                          "copy_paste_prob", 0.0) > 0:
+            raise ValueError("copy-paste takes its donor from the sample a mapper mapped "
+                             "last, which worker processes would make depend on their "
+                             "scheduling; train with copy_paste_prob > 0 at --workers 0 "
+                             "(worker-loader copy-paste is ROADMAP item 11d)")
         self.records = get_dataset(records) if isinstance(records, str) else list(records)
         self.batch_size = batch_size
         ctx = mp.get_context("spawn")

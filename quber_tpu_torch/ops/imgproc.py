@@ -4,16 +4,22 @@ tools call, in numpy and scipy (the port has no OpenCV):
   * `bgr2hsv` / `hsv2bgr` / `bgr2hls` / `hls2bgr`: `cv2.cvtColor` on uint8
     (hue in 0..180). BGR -> HSV is OpenCV's integer path (12-bit division
     tables, rounding half up); the other three go through float32 with
-    OpenCV's fused multiply-adds. Its vector loop (AVX2: 32 pixels at a
-    time for HSV, 8 for HLS) and the scalar code that takes the rest of a
-    row round differently, so the copies follow each pixel's column;
+    OpenCV's fused multiply-adds. Its vector loop and the scalar code that
+    takes the rest of a row round differently, so the copies follow each
+    pixel's column. The lane widths (32 pixels for HSV -> BGR, 8 for
+    BGR -> HLS) are those of OpenCV 5.0's color_hsv code built for AVX2,
+    its widest dispatch target, which an x86-64 wheel runs on any CPU with
+    AVX2 (AVX-512 ones too). Another build or dispatch (ARM NEON, a CPU
+    without AVX2, cv2.setUseOptimized(False)) splits rows at other columns,
+    and there these copies can differ from cv2 by one level in a row's tail;
   * `remap_nearest`: `cv2.remap(src, map_x, map_y, INTER_NEAREST,
     borderMode=BORDER_REPLICATE)` with float32 maps: each coordinate is
     rounded half to even (cvRound), then clamped into the image;
-  * `resize_cubic_f32`: `cv2.resize(src, (w, h), interpolation=INTER_CUBIC)`
-    of a float32 image: OpenCV's float32 coefficients (a = -0.75), a
-    horizontal then a vertical pass in float32, rows and columns clamped
-    (within 2e-6 of OpenCV 5.0, whose float32 order is not reproduced);
+  * `resize_cubic`: `cv2.resize(src, (w, h), interpolation=INTER_CUBIC)`
+    of a float32 or float64 image: OpenCV's float32 coefficients
+    (a = -0.75, half-pixel centres), a horizontal then a vertical pass in
+    the image's dtype, rows and columns clamped (float64 equal to OpenCV
+    5.0; float32 within 2.5e-6, its float32 order not reproduced);
   * `rotation_matrix` / `warp_affine`: `cv2.getRotationMatrix2D` and
     `cv2.warpAffine` (INTER_LINEAR or INTER_NEAREST, BORDER_CONSTANT 0):
     the inverse map in double, source coordinates and bilinear weights in
@@ -198,19 +204,22 @@ def _cubic_taps(n_in: int, n_out: int):
     return idx, np.stack([c0, c1, c2, c3], axis=1).astype(_F32)
 
 
-def resize_cubic_f32(src: np.ndarray, size: tuple[int, int]) -> np.ndarray:
-    """cv2.resize(src, (w, h), interpolation=INTER_CUBIC) of a float32 [H, W]
-    image, at size = (h, w)."""
-    src = np.asarray(src, _F32)
+def resize_cubic(src: np.ndarray, size: tuple[int, int]) -> np.ndarray:
+    """cv2.resize(src, (w, h), interpolation=INTER_CUBIC) of a float32 or
+    float64 [H, W] image, at size = (h, w), computed in the image's dtype."""
+    src = np.asarray(src)
+    if src.dtype != np.float64:
+        src = src.astype(_F32)
+    dt = src.dtype
     h, w = size
     ix, wx = _cubic_taps(src.shape[1], w)
     rows = src[:, ix[:, 0]] * wx[:, 0]
     for k in range(1, 4):
-        rows = (rows + src[:, ix[:, k]] * wx[:, k]).astype(_F32)
+        rows = (rows + src[:, ix[:, k]] * wx[:, k]).astype(dt)
     iy, wy = _cubic_taps(src.shape[0], h)
     out = rows[iy[:, 0]] * wy[:, 0:1]
     for k in range(1, 4):
-        out = (out + rows[iy[:, k]] * wy[:, k:k + 1]).astype(_F32)
+        out = (out + rows[iy[:, k]] * wy[:, k:k + 1]).astype(dt)
     return out
 
 

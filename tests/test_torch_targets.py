@@ -27,6 +27,7 @@ from quber_tpu_torch.data import rle as TRle
 from quber_tpu_torch.data import synthetic as TSyn
 from quber_tpu_torch.models.mask_refiner import MaskRefinerConfig
 from quber_tpu_torch.ops import encoding as TE
+from quber_tpu_torch.ops import imgproc
 from quber_tpu_torch.train import device_targets as TDT
 
 TOLERANCES = [("sem_seg", 0), ("sem_seg_weights", 0), ("center", 1e-5), ("offset", 1e-4),
@@ -171,14 +172,15 @@ def test_perturb_helpers_exact_against_cv2():
     mask[:6] = 1  # foreground on the border
     kernel = np.ones((3, 3), np.uint8)
     for it in (1, 2, 5):
-        np.testing.assert_array_equal(TP.erode3(mask, it), cv2.erode(mask, kernel, iterations=it))
-        np.testing.assert_array_equal(TP.dilate3(mask, it),
+        np.testing.assert_array_equal(imgproc.erode_rect(mask, 3, it),
+                                      cv2.erode(mask, kernel, iterations=it))
+        np.testing.assert_array_equal(imgproc.dilate_rect(mask, 3, it),
                                       cv2.dilate(mask, kernel, iterations=it))
     sparse = (rng.rand(90, 120) > 0.97).astype(np.uint8)
     np.testing.assert_array_equal(TP.merge_masks(sparse, np.zeros_like(sparse)),
                                   JP.merge_masks(sparse, np.zeros_like(sparse)))
     noise = rng.rand(7, 9)
-    np.testing.assert_allclose(TP.resize_cubic(noise, 96, 128),
+    np.testing.assert_allclose(imgproc.resize_cubic(noise, (96, 128)),
                                cv2.resize(noise, (128, 96), interpolation=cv2.INTER_CUBIC),
                                atol=1e-5)
     blob = TSyn._superellipse(*np.mgrid[:90, :120].astype(np.float32), 40, 60, 30, 18, 0.4, 2.0)

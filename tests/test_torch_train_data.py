@@ -115,10 +115,28 @@ def test_read_image_is_cv2_imread_and_refuses_jpeg(tmp_path):
 # the OpenCV copies
 # ---------------------------------------------------------------------------
 
+def _cv2_color_hsv_runs_avx2() -> bool:
+    """Whether cv2 runs the AVX2 build of its color_hsv code, whose lane
+    widths ops/imgproc's colour copies follow: AVX2 in the baseline or
+    dispatched and present on this CPU (a trailing '?' marks a dispatched
+    feature the CPU lacks), and no AVX-512 baseline."""
+    feats = cv2.getCPUFeaturesLine().split()
+    baseline = [f for f in feats if not f.startswith("*")]
+    runs = baseline + [f[1:] for f in feats if f.startswith("*") and not f.endswith("?")]
+    return (cv2.useOptimized() and "AVX2" in runs
+            and not any(f.startswith("AVX512") for f in baseline))
+
+
 @pytest.mark.parametrize("width", [1, 17, 40, 131, 640])
 def test_cvtcolor_equals_cv2(width):
     """Every colour conversion equal, on rows whose widths put pixels in
-    OpenCV's vector loop and in its scalar tail."""
+    OpenCV's vector loop and in its scalar tail. The copies follow OpenCV
+    5.0's AVX2 vector loop (ops/imgproc's docstring), so a cv2 that runs
+    another build of it is not the function they copy."""
+    if not _cv2_color_hsv_runs_avx2():
+        pytest.skip("cv2 does not run the AVX2 build of color_hsv "
+                    f"(CPU features: {cv2.getCPUFeaturesLine()}), whose lane widths "
+                    "ops/imgproc's colour copies follow")
     img = np.random.RandomState(width).randint(0, 256, (max(3, 60000 // width), width, 3),
                                                np.uint8)
     for fn, code in ((imgproc.bgr2hsv, cv2.COLOR_BGR2HSV), (imgproc.hsv2bgr, cv2.COLOR_HSV2BGR),
@@ -141,7 +159,7 @@ def test_remap_cubic_blur_and_morphology_equal_cv2():
     lattice = rng.rand(9, 9).astype(np.float32) * 2 - 1
     for h, w in ((48, 64), (37, 53)):
         want = cv2.resize(lattice, (w, h), interpolation=cv2.INTER_CUBIC)
-        assert np.abs(imgproc.resize_cubic_f32(lattice, (h, w)) - want).max() <= 2.5e-6
+        assert np.abs(imgproc.resize_cubic(lattice, (h, w)) - want).max() <= 2.5e-6
 
     img = rng.randint(0, 256, (37, 53, 3), np.uint8)
     for sigma in (0.3, 0.9, 1.8):
@@ -356,3 +374,17 @@ def test_make_dataloader_with_workers_zero_is_the_iterator(data_root):
     for _ in range(2):
         x, y = next(a), next(b)
         assert all(np.array_equal(x[k], y[k]) for k in x)
+
+
+def test_worker_loader_refuses_copy_paste(data_root):
+    """Copy-paste's donor is the mapper's previous sample, which worker
+    processes would make depend on their scheduling: the worker loader
+    refuses it, and the in-process iterator keeps it."""
+    from quber_tpu_torch.data.pipeline import make_dataloader
+
+    records, _ = _records(data_root)
+    mc, tc, _, _ = _configs(color_aug_ssd=False, perlin_distortion=False, copy_paste_prob=0.7)
+    with pytest.raises(ValueError, match="item 11d"):
+        make_dataloader(records, TM.PerturbedPanopticMapper(tc, mc), 2, worker_count=2)
+    batch = next(make_dataloader(records, TM.PerturbedPanopticMapper(tc, mc), 2, worker_count=0))
+    assert batch["image"].shape[0] == 2
