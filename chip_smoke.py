@@ -149,8 +149,28 @@ Phases (any failure ends the run with a non-zero exit code):
      on the card against the CPU (loss rtol 1e-4, gradient cosine >=
      0.999), and the CGNet saved as train_fg_torch saves it filtering a
      frame through $QUBER_CGNET_CKPT;
- 23. print a JSON line of the kernels' numbers (each row with the launches
-     of phases 20-22 beside those of earlier paths), the frame time,
+ 23. the base-segmenter zoo: (a) MSMFormer and UOAIS-Net at 480x640 from
+     one seeded init, float32 (TF32 off) on the card against the CPU (every
+     output within ZOO_RTOL of max |CPU|, the selections equal), then
+     bfloat16 on the card (finite, the distance to float32 printed); (b)
+     train_zoo_torch's msmformer and uoaisnet steps at 480x640 on two
+     rendered scenes, card against CPU from the same init in float32, the
+     second step from the CPU's state after the first (losses rtol 1e-3, at
+     MSMFormer's second step those that tied queries do not move: dice and
+     objectness; first gradients cosine >= 0.999 tensor by tensor), then 40 of the
+     recipes' own steps each on the card (MSMFormer's in bfloat16)
+     (ms a step, peak memory), the weights saved as train_zoo_torch saves
+     them; (c) phase 14's frames through run_eval with base msmformer and
+     uoaisnet (those weights through $QUBER_MSMFORMER_NATIVE_CKPT and
+     $QUBER_UOAISNET_CKPT) and the flagship int8 refiner, per image and
+     streamed at B = 8, as in phase 21(c), and each wrapper's own device
+     seconds a frame on 4 frames (read and inpaint excluded); (d) two
+     frames of msmformer-zoomin (its float32 model) and one of
+     msmformer-pretrained and uoaisnet-pretrained, each at its wrapper's
+     random init, card against CPU (count equal, >= 99.5% of the labels),
+     and nms_fixed's ms a frame at 1000 boxes;
+ 24. print a JSON line of the kernels' numbers (each row with the launches
+     of phases 20-23 beside those of earlier paths), the frame time,
      and as the last line {"ok": true, "device": {...}}.
 Needs CUDA; it has no CPU mode.
 """
@@ -237,6 +257,18 @@ FILE_STEPS = 4  # phase 22(b)
 FG_STEPS = 10  # phase 22(e)
 FG_LOSS_RTOL = 1e-4
 FG_CPU_BATCH = 2  # phase 22(e)'s step on the card against the CPU
+ZOO_SEED = 9  # phase 23's inits and scene
+# phase 23(a)'s float32 forward, card against CPU, as phase 20's: MSMFormer
+# (GroupNorm throughout) read 3.6e-6 (H100, one run). UOAIS-Net's FrozenBN is
+# the identity at init, so its ~70 convolutions run unnormalised on the raw
+# 0-255 input and its mask heads read up to 2.95e-4 there; a bfloat16 forward
+# moves either by ~1e-2
+ZOO_RTOL = {"MSMFormer": ABLATION_RTOL, "UOAISNet": 1e-3}
+ZOO_POOL = 2
+ZOO_CPU_STEPS = 2  # card against CPU
+ZOO_CARD_STEPS = 40  # then on the card alone, timed
+NMS_BOXES = 1000  # the released UOAIS-Net's RPN keeps 1000 proposals a level
+BASE_TIMED_FRAMES = 4  # phase 23(c)'s wrapper-only timing
 # H100 SXM data sheet: HBM3 rate and fp32 rate outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
@@ -1747,14 +1779,17 @@ def ucn_clustering(state, frames, card):
         raise AssertionError("UCN: no frame gave an instance")
 
 
-def ucn_evaluation(ckpt, root, params, frames, card):
-    """Phase 21(c): phase 14's frames through run_eval with the UCN base
-    model (from $QUBER_UCN_CKPT) and the flagship refiner, per image and
-    streamed. Returns the launches of both passes."""
+def base_evaluation(base, env, ckpt, root, params, frames, card, label):
+    """Phase 14's frames through run_eval with a learned base model (its
+    weights through $`env` = `ckpt`) and the flagship refiner, per image and
+    streamed: one single-frame launch of each kernel a frame per image, one
+    batched launch a batch streamed, the base masks equal between the
+    passes, the refined ones as in phase 14. Returns the launches of both
+    passes."""
     from quber_tpu_torch.evaluation.harness import PRINT_KEYS, masks_to_label_image, run_eval
     from quber_tpu_torch.ops import kernels
 
-    os.environ["QUBER_UCN_CKPT"] = ckpt
+    os.environ[env] = ckpt
     refiner = _Recording(_eval_refiner(None, params, frames, replay=True))
     passes = {}
     for name, batch in (("per-image", 0), ("streamed", BATCH)):
@@ -1762,43 +1797,71 @@ def ucn_evaluation(ckpt, root, params, frames, card):
         refiner.initial, refiner.masks = [], []
         kernels.reset_launch_counts()
         t0 = time.perf_counter()
-        res = run_eval(base_model="ucn", refiner_model=refiner, test_dataset="OSD",
+        res = run_eval(base_model=base, refiner_model=refiner, test_dataset="OSD",
                        dataset_path=root, refine_batch=batch, device="cuda",
-                       csv_path=os.path.join(os.path.dirname(root), "phase21", name, "eval.csv"))
+                       csv_path=os.path.join(os.path.dirname(root), f"eval_{base}", name,
+                                             "eval.csv"))
         torch.cuda.synchronize()
         passes[name] = (res, _launch_counts(), list(refiner.initial), list(refiner.masks),
                         time.perf_counter() - t0)
     (res1, launches1, init1, masks1, wall1), (res2, launches2, init2, masks2, wall2) = \
         passes.values()
-    print(f"UCN evaluation per image: launches {launches1}; streamed (B={BATCH}): {launches2}")
+    print(f"{label} evaluation per image: launches {launches1}; streamed (B={BATCH}): {launches2}")
     for name in ("instance_stats", "encode_initial_masks", "group_pixels"):
         if launches1[name] != EVAL_FRAMES:
-            raise AssertionError(f"UCN evaluation: {name} launched {launches1[name]} times "
+            raise AssertionError(f"{label} evaluation: {name} launched {launches1[name]} times "
                                  f"for {EVAL_FRAMES} frames")
     if launches1["encode_initial_masks_batched"] or launches1["group_pixels_batched"]:
-        raise AssertionError("UCN evaluation per image: a batched kernel was launched")
-    _check_launches("UCN evaluation, streamed", launches2, -(-EVAL_FRAMES // BATCH))
-    label = lambda m: masks_to_label_image(m, np.zeros((H, W), np.int32))  # noqa: E731
+        raise AssertionError(f"{label} evaluation per image: a batched kernel was launched")
+    _check_launches(f"{label} evaluation, streamed", launches2, -(-EVAL_FRAMES // BATCH))
+    label_image = lambda m: masks_to_label_image(m, np.zeros((H, W), np.int32))  # noqa: E731
     for i in range(EVAL_FRAMES):
-        if len(init1[i]) != len(init2[i]) or not np.array_equal(label(init1[i]), label(init2[i])):
-            raise AssertionError(f"UCN evaluation frame {i}: the base model's masks differ "
+        if len(init1[i]) != len(init2[i]) or not np.array_equal(label_image(init1[i]),
+                                                                label_image(init2[i])):
+            raise AssertionError(f"{label} evaluation frame {i}: the base model's masks differ "
                                  "between the passes")
-        agree = _label_agreement(label(masks1[i]), label(masks2[i]))
+        agree = _label_agreement(label_image(masks1[i]), label_image(masks2[i]))
         if len(masks1[i]) != len(masks2[i]) or agree < PANOPTIC_AGREEMENT:
-            raise AssertionError(f"UCN evaluation frame {i}: per image and streamed disagree")
+            raise AssertionError(f"{label} evaluation frame {i}: per image and streamed disagree")
     if len(masks1) != EVAL_FRAMES or len(masks2) != EVAL_FRAMES:
-        raise AssertionError("a UCN evaluation pass did not refine every frame")
-    worst = max(abs(res2[s][k] - res1[s][k]) for s in ("initial", "refined") for k in PRINT_KEYS)
+        raise AssertionError(f"a {label} evaluation pass did not refine every frame")
+    # a stage with no instance in any frame has no obj_mIOU
+    if any(set(res1[s]) != set(res2[s]) for s in ("initial", "refined")):
+        raise AssertionError(f"{label} evaluation: the passes report other metrics")
+    worst = max(abs(res2[s][k] - res1[s][k]) for s in ("initial", "refined") for k in PRINT_KEYS
+                if k in res1[s])
     if not worst <= EVAL_MEANS_ATOL:
-        raise AssertionError("UCN evaluation: streamed and per-image means disagree")
+        raise AssertionError(f"{label} evaluation: streamed and per-image means disagree")
     means = {s: {k: round(res1[s][k], 6) for k in ("Objects F-measure", "Boundary F-measure")}
              for s in ("initial", "refined")}
     sec = {k: round(v / EVAL_FRAMES, 4) for k, v in res1["seconds"].items()}
-    print(f"UCN base (phase 21(a)'s weights) -> flagship int8 refiner, {EVAL_FRAMES} frames: "
+    print(f"{label} base -> flagship int8 refiner, {EVAL_FRAMES} frames: "
           f"instances per frame {[len(m) for m in init1]} -> {[len(m) for m in masks1]}, "
           f"means {means}, largest streamed difference {worst:.3g}; s/frame {sec}; pass wall "
           f"{wall1:.2f} / {wall2:.2f} s on {card}")
     return launches1, launches2
+
+
+def base_device_seconds(base, frames, card):
+    """The wrapper's own seconds a frame (its device work and the copy of
+    its masks to the host, not the host's reading and inpainting) on the
+    first BASE_TIMED_FRAMES frames, after one untimed frame."""
+    from quber_tpu_torch.evaluation.base_models import build_base_model
+
+    model = build_base_model(base, "OSD", device="cuda")
+    keys = list(frames)[:BASE_TIMED_FRAMES]
+    model.predict(*keys[0])
+    seconds = [model.predict(*key)[2] for key in keys]
+    print(f"{base} wrapper's device seconds a frame (read and inpaint excluded): median "
+          f"{statistics.median(seconds):.4f} of {len(keys)} frames on {card}")
+
+
+def ucn_evaluation(ckpt, root, params, frames, card):
+    """Phase 21(c): phase 14's frames through run_eval with the UCN base
+    model (from $QUBER_UCN_CKPT, phase 21(a)'s weights) and the flagship
+    refiner, per image and streamed."""
+    return base_evaluation("ucn", "QUBER_UCN_CKPT", ckpt, root, params, frames, card,
+                           "UCN (phase 21(a)'s weights)")
 
 
 def ucn_zoom(state, frames, card):
@@ -2078,6 +2141,252 @@ def file_phase(root, params, dev, card, work):
 _T0 = time.perf_counter()
 
 
+def _zoo_models(dtype=torch.float32):
+    """MSMFormer and UOAIS-Net at full width from one seeded init, in eval
+    mode on the CPU: {name: model}."""
+    from quber_tpu_torch.models.msmformer import MSMFormer
+    from quber_tpu_torch.models.uoais_net import UOAISNet
+
+    models = {"MSMFormer": MSMFormer(dtype=dtype), "UOAISNet": UOAISNet(dtype=dtype)}
+    for model in models.values():
+        model.reset_parameters(torch.Generator().manual_seed(ZOO_SEED))
+        model.eval()
+    return models
+
+
+def _zoo_inputs():
+    """One rendered 480x640 scene as each model's evaluation wrapper feeds
+    it: standardised RGB and XYZ for MSMFormer, raw BGR and the normalised
+    depth for UOAIS-Net ({name: (input, input)}, [1, 3, H, W] on the CPU)."""
+    import train_zoo_torch as zoo
+
+    lab = zoo.stage(zoo.make_labeled_scenes(1, H, W, ZOO_SEED, (250, 1500)), "cpu")
+    det = zoo.stage(zoo.make_scenes(1, H, W, ZOO_SEED, (250, 1500)), "cpu")
+    return {"MSMFormer": (lab["rgb"], lab["xyz"]), "UOAISNet": (det["rgb"], det["depth"])}
+
+
+def _float_outputs(out):
+    return {k: v for k, v in out.items() if torch.is_floating_point(v)}
+
+
+def zoo_forwards(dev, card):
+    """Phase 23(a): MSMFormer and UOAIS-Net at 480x640 from one seeded init,
+    float32 (TF32 off) on the card against the CPU, then bfloat16 on the
+    card (finite, its distance to float32 printed)."""
+    inputs = _zoo_inputs()
+    f32 = {}
+    for name, model in _zoo_models().items():
+        args = inputs[name]
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            cpu = model(*args)
+            cpu_s = time.perf_counter() - t0
+            model.to(dev)
+            got = model(*(a.to(dev) for a in args))
+        torch.cuda.synchronize()
+        same = {k: bool(torch.equal(got[k].cpu(), v)) for k, v in cpu.items()
+                if not torch.is_floating_point(v)}
+        rel = {k: float((got[k].cpu() - v).nan_to_num(0, 0, 0).abs().max()
+                        / v.nan_to_num(0, 0, 0).abs().max().clamp_min(1e-30))
+               for k, v in _float_outputs(cpu).items()}
+        finite = all(bool(torch.isfinite(v).all()) for v in _float_outputs(got).values())
+        print(f"{name} at {H}x{W} float32, card against CPU: max |card - CPU| over max |CPU| "
+              f"{({k: float(f'{r:.3g}') for k, r in rel.items()})} (tolerance {ZOO_RTOL[name]}); "
+              f"selections equal {same}; CPU forward {cpu_s:.2f} s")
+        if not finite or not all(same.values()) or max(rel.values()) > ZOO_RTOL[name]:
+            raise AssertionError(f"{name}: the card and the CPU disagree on the forward")
+        f32[name] = got
+        del model
+    for name, model in _zoo_models(torch.bfloat16).items():
+        model.to(dev)
+        with torch.no_grad():
+            got = model(*(a.to(dev) for a in inputs[name]))
+        torch.cuda.synchronize()
+        dist = {k: float((v.float() - f32[name][k]).abs().mean() / f32[name][k].abs().mean())
+                for k, v in _float_outputs(got).items()
+                if k in ("mask_logits", "objectness", "rpn_objectness", "rpn_deltas")}
+        if not all(bool(torch.isfinite(v).all()) for v in _float_outputs(got).values()):
+            raise AssertionError(f"{name}: a bfloat16 output on the card is not finite")
+        print(f"{name} bfloat16 on the card: finite; mean |bf16 - float32| over mean |float32| "
+              f"{({k: float(f'{d:.3g}') for k, d in dist.items()})} on {card}")
+
+
+def zoo_training(dev, card, work):
+    """Phase 23(b): train_zoo_torch's msmformer and uoaisnet steps at
+    480x640 on two rendered scenes, card against CPU from the same init in
+    float32 (MSMFormer's recipe runs bfloat16, whose roundings differ
+    between the card's and the CPU's kernels by ~1e-3 of the loss); then the
+    recipes' own steps on the card alone, timed, the weights saved as
+    train_zoo_torch saves them. Returns {model: checkpoint directory}."""
+    import train_zoo_torch as zoo
+    from quber_tpu_torch.models.from_jax import state_dict_to_jax
+    from quber_tpu_torch.train.checkpoint import save_params
+
+    ckpts = {}
+    for name in ("msmformer", "uoaisnet"):
+        make_pool, make_model, make_step = zoo.RECIPES[name]
+        t0 = time.perf_counter()
+        scenes = make_pool(ZOO_POOL, H, W, 7, (250, 1500))
+        render_s = time.perf_counter() - t0
+        f32 = {"dtype": torch.float32} if name == "msmformer" else {}
+        runs = {}
+        for key, device in (("card", dev), ("cpu", torch.device("cpu"))):
+            model, optimizer = make_model(7, UCN_LR, device, **f32)
+            runs[key] = {"model": model, "opt": optimizer, "step": make_step(model, optimizer),
+                         "pool": zoo.stage(scenes, device), "losses": [], "s": 0.0}
+        for i in range(ZOO_CPU_STEPS):
+            if i:  # each later step from the CPU's own state, as the CPU tests take it
+                runs["card"]["model"].load_state_dict(runs["cpu"]["model"].state_dict())
+                runs["card"]["opt"].load_state_dict(runs["cpu"]["opt"].state_dict())
+            for run in runs.values():
+                t1 = time.perf_counter()
+                loss, parts = run["step"](run["pool"], i % ZOO_POOL)
+                run["losses"].append({"total": float(loss),
+                                      **{k: float(v) for k, v in parts.items()}})
+                run["s"] += time.perf_counter() - t1
+                if i == 0:
+                    run["grads"] = {n: p.grad.detach().cpu().double()
+                                    for n, p in run["model"].named_parameters()
+                                    if p.grad is not None}
+        loss_gpu, grad_gpu = runs["card"]["losses"], runs["card"]["grads"]
+        loss_cpu, grad_cpu, cpu_s = runs["cpu"]["losses"], runs["cpu"]["grads"], runs["cpu"]["s"]
+        pool = runs["card"]["pool"]
+        del runs
+        norm = {n: float(g.norm()) for n, g in grad_cpu.items()}
+        top = max(norm.values())
+        # a gradient that is zero on both or float noise beside the largest
+        # is not compared
+        cos = min((float(torch.nn.functional.cosine_similarity(
+            g.flatten(), grad_gpu[n].flatten(), dim=0)), n)
+            for n, g in grad_cpu.items() if norm[n] > ZERO_GRAD_SHARE * top)
+        gaps = [{k: float(f"{abs(a[k] - b[k]) / max(abs(b[k]), 1e-12):.3g}") for k in b}
+                for a, b in zip(loss_gpu, loss_cpu)]
+        print(f"{name}, {ZOO_CPU_STEPS} train_zoo_torch steps at {H}x{W} in float32 card against "
+              f"CPU: total losses card {[a['total'] for a in loss_gpu]} cpu "
+              f"{[b['total'] for b in loss_cpu]}, relative gaps by part {gaps} (rtol "
+              f"{CPU_LOSS_RTOL}); first "
+              f"gradient cosine min {cos[0]:.6f} at {cos[1]} (need >= {GRAD_COSINE}); CPU steps "
+              f"{cpu_s:.1f} s; scenes rendered in {render_s:.1f} s")
+        for i, (a, b) in enumerate(zip(loss_gpu, loss_cpu)):
+            # after a step MSMFormer's masks saturate and queries tie on the
+            # matching cost; a forward's last bits decide which tied query
+            # takes a target, which moves the mask loss (and so the total)
+            # but not the dice and objectness losses of the tied queries
+            # (tests/test_torch_zoo_train_msmformer.py)
+            gated = [k for k in b if not (i and name == "msmformer" and k in ("total", "loss_mask"))]
+            if not all(abs(a[k] - b[k]) <= CPU_LOSS_RTOL * abs(b[k]) + 1e-6 for k in gated):
+                raise AssertionError(f"{name}: the card and the CPU disagree on a loss")
+        if cos[0] < GRAD_COSINE:
+            raise AssertionError(f"{name}: the card and the CPU disagree on a gradient")
+        model, optimizer = make_model(7, UCN_LR, dev)
+        step = make_step(model, optimizer)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        times = []
+        for i in range(ZOO_CARD_STEPS):
+            t0 = time.perf_counter()
+            loss, _ = step(pool, i % ZOO_POOL)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        print(f"{name} train step on the card ({next(model.parameters()).dtype} weights, "
+              f"{model.dtype} compute): {statistics.median(times):.3f} ms median of "
+              f"{ZOO_CARD_STEPS} (batch 1, {H}x{W}), first {times[0]:.1f} ms, loss "
+              f"{float(loss):.4f}, peak {peak:.3f} GiB on {card}")
+        if not np.isfinite(float(loss)):
+            raise AssertionError(f"{name}: a loss on the card is not finite")
+        ckpts[name] = os.path.join(work, name, "ckpt")
+        save_params(ckpts[name], state_dict_to_jax(model), step=ZOO_CARD_STEPS)
+        del model, optimizer, step, pool
+        torch.cuda.empty_cache()
+    return ckpts
+
+
+def _wrapper_parity(label, make, keys, card):
+    """A base-model wrapper on the card against the CPU on `keys` (frames):
+    the same count and >= 99.5% of the labels."""
+    from quber_tpu_torch.evaluation.harness import masks_to_label_image
+
+    results = {}
+    for device in ("cuda", "cpu"):
+        base = make(device)
+        results[device] = [base.predict(*key) for key in keys]
+        del base
+    for i, (g, c) in enumerate(zip(results["cuda"], results["cpu"])):
+        agree = _label_agreement(masks_to_label_image(g[0], np.zeros((H, W), np.int32)),
+                                 masks_to_label_image(c[0], np.zeros((H, W), np.int32)))
+        print(f"{label} frame {i + 1}: instances card {len(g[0])} CPU {len(c[0])}, label "
+              f"agreement {agree:.6f} (need >= {PANOPTIC_AGREEMENT}), card {g[2]:.3f} s, CPU "
+              f"{c[2]:.3f} s on {card}")
+        if len(g[0]) != len(c[0]) or agree < PANOPTIC_AGREEMENT:
+            raise AssertionError(f"{label}: the card and the CPU disagree")
+
+
+def zoo_rest(frames, dev, card):
+    """Phase 23(d): msmformer-zoomin on two frames and msmformer-pretrained
+    and uoaisnet-pretrained on one, each at its wrapper's random init, card
+    against CPU; the ms a frame of nms_fixed at 1000 boxes."""
+    from quber_tpu_torch.models.msmformer import MSMFormerBaseModel
+    from quber_tpu_torch.models.msmformer_pretrained import PretrainedMSMFormerBaseModel
+    from quber_tpu_torch.models.uoais_net_pretrained import UOAISNetPretrainedBaseModel
+    from quber_tpu_torch.ops.boxes import nms_fixed
+
+    from quber_tpu_torch.models.msmformer import set_compute_dtype
+
+    keys = list(frames)
+
+    def zoomin(device):
+        # the wrapper's seed-0 init (no checkpoint), which finds instances on
+        # these frames, with its float32 model: at a random init the queries'
+        # bfloat16 scores lie within a rounding of each other, and the card's
+        # and the CPU's bfloat16 kernels round in other places
+        base = MSMFormerBaseModel(zoom_in=True, device=device)
+        set_compute_dtype(base.model, torch.float32)
+        base.model.dtype = torch.float32
+        return base
+
+    _wrapper_parity("msmformer-zoomin, seed-0 init, float32", zoomin, keys[:ZOOM_FRAMES], card)
+    _wrapper_parity("msmformer-pretrained, random init", lambda d: PretrainedMSMFormerBaseModel(
+        device=d), keys[:1], card)
+    _wrapper_parity("uoaisnet-pretrained, random init", lambda d: UOAISNetPretrainedBaseModel(
+        device=d), keys[:1], card)
+    g = torch.Generator().manual_seed(ZOO_SEED)
+    xy = torch.rand(NMS_BOXES, 2, generator=g) * torch.tensor([W, H])
+    wh = torch.rand(NMS_BOXES, 2, generator=g) * 120 + 8
+    boxes = torch.cat([xy, xy + wh], dim=1).to(dev)
+    scores = torch.rand(NMS_BOXES, generator=g).to(dev)
+    keep_cpu = nms_fixed(boxes.cpu(), scores.cpu(), 0.7)
+    times = []
+    for _ in range(20):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        keep = nms_fixed(boxes, scores, 0.7)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    if not torch.equal(keep.cpu(), keep_cpu):
+        raise AssertionError("nms_fixed: the card and the CPU keep other boxes")
+    print(f"nms_fixed at {NMS_BOXES} boxes (IoU 0.7, {int(keep.sum())} kept, equal to the CPU's): "
+          f"{statistics.median(times):.3f} ms median of 20 (host clock around the call, its "
+          f"one device-to-host copy included) on {card}")
+
+
+def zoo_phase(root, params, frames, dev, card, work):
+    """Phase 23: the MSMFormer and UOAIS-Net base segmenters on the card.
+    Returns {base: the launches of 23(c)'s passes}."""
+    zoo_forwards(dev, card)
+    torch.cuda.empty_cache()
+    ckpts = zoo_training(dev, card, work)
+    launches = {}
+    for base, env in (("msmformer", "QUBER_MSMFORMER_NATIVE_CKPT"),
+                      ("uoaisnet", "QUBER_UOAISNET_CKPT")):
+        launches[base] = base_evaluation(base, env, ckpts[base], root, params, frames, card,
+                                         f"{base} (phase 23(b)'s weights)")
+        base_device_seconds(base, frames, card)
+        torch.cuda.empty_cache()
+    zoo_rest(frames, dev, card)
+    return launches
+
+
 def _elapsed(what):
     print(f"[{time.perf_counter() - _T0:.1f} s] {what} done", flush=True)
 
@@ -2163,6 +2472,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         file_launches = file_phase(root, params, dev, card, work)
         _elapsed("phase 22")
+        torch.cuda.empty_cache()
+        zoo_launches = zoo_phase(root, params, frames, dev, card, work)
+        _elapsed("phase 23")
     # the serving shapes' entries: launches on the single-frame CLI path
     # (predict, K = 24) and on the benchmark's batches of 16
     for row in rows:
@@ -2186,6 +2498,11 @@ def main() -> int:
         # the launches of the device-target steps from files (phase 22(b))
         row["file_train"] = {"launches": file_launches[name],
                              "path": f"{FILE_STEPS} device-target steps from UOAIS-Sim files"}
+        # the MSMFormer / UOAIS-Net -> refiner evaluations (phase 23(c))
+        row["zoo_eval"] = {base: {"launches_per_image": n[0][name],
+                                  "launches_streamed": n[1][name],
+                                  "path": f"run_eval, base {base}, {EVAL_FRAMES} frames"}
+                           for base, n in zoo_launches.items()}
 
     steady = times[1:]
     med = statistics.median(steady)

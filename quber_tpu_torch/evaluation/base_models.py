@@ -6,12 +6,22 @@ protocols, behind the interface
 
     predict(rgb_path, depth_path) -> (masks [N, H, W] bool, fg_mask | None, seconds)
 
-UCN (`ucn`, `ucn-zoomin`) reads its weights from $QUBER_UCN_CKPT: a
-checkpoint directory of train_zoo_torch.py or an int8 .npz in the JAX
-package's layout (random init from seed 0 when it is unset or holds no
-checkpoint, as in the reference). The other learned base segmenters of the
-zoo are not ported yet: their names raise NotImplementedError (ROADMAP.md,
-Queue 1 item 14).
+The learned base segmenters and where their weights come from:
+  * `ucn`, `ucn-zoomin`: $QUBER_UCN_CKPT;
+  * `msmformer`, `msmformer-zoomin`: $QUBER_MSMFORMER_NATIVE_CKPT;
+  * `uoaisnet`, `uoaisnet-amodal`: $QUBER_UOAISNET_CKPT, with the score
+    threshold $QUBER_UOAISNET_THRESH (default 0.5);
+each a checkpoint directory of train_zoo_torch.py or an int8 .npz in the JAX
+package's layout, and a random init from seed 0 when it is unset or holds no
+checkpoint, as in the reference. The reference's released checkpoints:
+  * `msmformer-pretrained`: $QUBER_MSMFORMER_CKPT (required);
+  * `uoaisnet-pretrained`: $QUBER_UOAIS_CKPT (a random init without it, for
+    timing), with $QUBER_CGNET_CKPT optionally naming the CGNet whose
+    foreground filters its masks;
+each a reference .pth (read through models/import_zoo) or a save_params
+directory of the port's state dict. The other learned base segmenters of
+the zoo are not ported yet: their names raise NotImplementedError
+(ROADMAP.md, Queue 1 item 14).
 """
 
 from __future__ import annotations
@@ -26,9 +36,7 @@ from quber_tpu_torch.evaluation.datasets import BG_LABELS, EVAL_H, EVAL_W
 from quber_tpu_torch.ops.preprocess import resize_nearest
 
 ZOO_BASE_MODELS = (
-    "msmformer", "msmformer-zoomin", "msmformer-pretrained",
-    "uoaisnet-pretrained", "uoisnet3d", "uoisnet3d-pretrained", "uoaisnet",
-    "uoaisnet-amodal", "sam", "sam-depth", "detic", "grounded-sam",
+    "uoisnet3d", "uoisnet3d-pretrained", "sam", "sam-depth", "detic", "grounded-sam",
 )
 
 
@@ -121,6 +129,29 @@ def _restore_or_none(path: str):
         return None
 
 
+def _reference_weights(path: str, importer):
+    """The port's state dict from a reference .pth (through `importer`) or
+    from a save_params directory holding the port's state dict. The JAX
+    package's orbax directory of an imported checkpoint cannot be read: its
+    flax layout flattens and transposes where the reference does not, so the
+    reference .pth is what to pass."""
+    import torch
+
+    if path.endswith((".pth", ".pt")):
+        from quber_tpu_torch.models.import_zoo import load_reference_checkpoint
+
+        return importer(load_reference_checkpoint(path))
+    from quber_tpu_torch.train.checkpoint import load_eval_params
+
+    try:
+        params = load_eval_params(path)
+    except NotImplementedError as e:
+        raise NotImplementedError(
+            f"{path} is an orbax checkpoint of the JAX package; pass the reference's .pth "
+            "(read through quber_tpu_torch.models.import_zoo) instead") from e
+    return {k: torch.as_tensor(v) for k, v in params.items()}
+
+
 def build_base_model(name: str, dataset: str, npy_folder: str = "", device="cuda"):
     if name == "gt":
         return GT(dataset)
@@ -137,9 +168,43 @@ def build_base_model(name: str, dataset: str, npy_folder: str = "", device="cuda
 
         return UCNBaseModel(params=_restore_or_none(os.environ.get("QUBER_UCN_CKPT", "")),
                             dataset=dataset, zoom_in=name.endswith("zoomin"), device=device)
+    if name in ("msmformer", "msmformer-zoomin"):
+        from quber_tpu_torch.models.msmformer import MSMFormerBaseModel
+
+        return MSMFormerBaseModel(
+            params=_restore_or_none(os.environ.get("QUBER_MSMFORMER_NATIVE_CKPT", "")),
+            dataset=dataset, zoom_in=name.endswith("zoomin"), device=device)
+    if name in ("uoaisnet", "uoaisnet-amodal"):
+        from quber_tpu_torch.models.uoais_net import UOAISNetBaseModel
+
+        return UOAISNetBaseModel(
+            params=_restore_or_none(os.environ.get("QUBER_UOAISNET_CKPT", "")),
+            dataset=dataset, amodal=name.endswith("amodal"), device=device,
+            score_threshold=float(os.environ.get("QUBER_UOAISNET_THRESH", "0.5")))
+    if name == "msmformer-pretrained":
+        from quber_tpu_torch.models.import_zoo import import_msmformer
+        from quber_tpu_torch.models.msmformer_pretrained import PretrainedMSMFormerBaseModel
+
+        ckpt = os.environ.get("QUBER_MSMFORMER_CKPT", "output/msmformer/ckpt")
+        return PretrainedMSMFormerBaseModel(_reference_weights(ckpt, import_msmformer),
+                                            dataset=dataset, device=device)
+    if name == "uoaisnet-pretrained":
+        from quber_tpu_torch.models.import_zoo import import_uoais_net
+        from quber_tpu_torch.models.uoais_net_pretrained import UOAISNetPretrainedBaseModel
+
+        ckpt = os.environ.get("QUBER_UOAIS_CKPT", "output/uoais_net/ckpt")
+        try:
+            params = _reference_weights(ckpt, import_uoais_net)
+        except FileNotFoundError:
+            params = None  # a random init, for timing without a checkpoint
+        fg_ckpt = os.environ.get("QUBER_CGNET_CKPT", "")
+        fg_params = _restore_or_none(fg_ckpt) if fg_ckpt else None
+        return UOAISNetPretrainedBaseModel(params, dataset=dataset, fg_params=fg_params,
+                                           device=device)
     if name in ZOO_BASE_MODELS:
         raise NotImplementedError(
             f"base model {name} is not ported yet (ROADMAP.md, Queue 1 item 14)")
     raise NotImplementedError(
         f"base model {name}; available: gt, empty, npy, perturbed-gt, "
-        "perturbed-gt-structural, ucn, ucn-zoomin")
+        "perturbed-gt-structural, ucn, ucn-zoomin, msmformer, msmformer-zoomin, "
+        "msmformer-pretrained, uoaisnet, uoaisnet-amodal, uoaisnet-pretrained")

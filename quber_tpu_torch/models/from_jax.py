@@ -11,7 +11,14 @@ The port's modules are named after the flax scopes, so the map is a rename:
   * `batch_stats/.../BatchNorm_0/{mean,var}` -> `norm.running_{mean,var}`,
     and a named BatchNorm scope's (UCN's `bn1`, `downsample_bn`, ...) ->
     `<scope>.running_{mean,var}`;
-  * a PReLU's `alpha` -> the `weight` of its nn.PReLU.
+  * a PReLU's `alpha` -> the `weight` of its nn.PReLU;
+  * a LayerNorm's `scale` -> `weight` (its scope keeps its name);
+  * flax MultiHeadDotProductAttention's DenseGeneral kernels (`query`,
+    `key`, `value` [dim, heads, head_dim], `out` [heads, head_dim, dim]) and
+    biases -> the Dense layers of layers.MultiHeadDotProductAttention over
+    the flattened heads;
+  * a bare parameter (MSMFormer's `query_embed`) -> the module's parameter
+    of that name.
 `state_dict_to_jax` is the inverse (it reads the norm scopes off the module
 types), and `load_optax_adam_state` carries Adam moments kept in the flax
 layout into a torch optimizer.
@@ -23,7 +30,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from quber_tpu_torch.models.layers import BatchNorm, FrozenBatchNorm, GroupNorm
+from quber_tpu_torch.models.layers import (
+    BatchNorm, FrozenBatchNorm, GroupNorm, LayerNorm, MultiHeadDotProductAttention)
 from quber_tpu_torch.models.ucn import RunningBatchNorm
 
 _NORM_SCOPES = {"GroupNorm_0", "BatchNorm_0", "FrozenBatchNorm_0"}
@@ -40,6 +48,7 @@ _LEAF = {
     "var": "running_var",
     "alpha": "weight",  # a PReLU's per-channel slope
     "prelu_alpha": "prelu_alpha",
+    "query_embed": "query_embed",
 }
 
 
@@ -72,6 +81,12 @@ def state_dict_from_jax(tree: dict) -> dict:
             arr = np.ascontiguousarray(arr.transpose(3, 2, 0, 1))
         elif leaf == "kernel" and arr.ndim == 2:
             arr = np.ascontiguousarray(arr.T)
+        elif leaf == "kernel" and arr.ndim == 3:  # attention heads
+            flat = arr.reshape(-1, arr.shape[-1]) if scopes[-1] == "out" else \
+                arr.reshape(arr.shape[0], -1)
+            arr = np.ascontiguousarray(flat.T)
+        elif leaf == "bias" and arr.ndim == 2:
+            arr = arr.reshape(-1)
         name = ".".join(scopes + [_LEAF[leaf]])
         if name in out:
             raise KeyError(f"two flax leaves map onto {name}")
@@ -97,6 +112,7 @@ _TO_JAX = {
         "running_mean": "frozen_mean", "running_var": "frozen_var"}),
     RunningBatchNorm: ("BatchNorm_0", {"weight": "scale", "bias": "bias",
                                        "running_mean": "mean", "running_var": "var"}),
+    LayerNorm: (None, {"weight": "scale", "bias": "bias"}),
 }
 
 
@@ -116,9 +132,19 @@ def state_dict_to_jax(model: nn.Module) -> dict:
                 collection = "batch_stats"
             # a module's `norm` stands for flax's unnamed norm scope; a norm
             # with a name of its own (the foreground nets' `bn`) keeps it
-            if scopes[-1] == "norm":
+            if scope and scopes[-1] == "norm":
                 scopes = scopes[:-1] + [scope]
             leaf = leaves[leaf]
+        elif len(scopes) > 1 and isinstance(model.get_submodule(".".join(scopes[:-1])),
+                                            MultiHeadDotProductAttention):
+            heads = model.get_submodule(".".join(scopes[:-1])).num_heads
+            if leaf == "weight":
+                leaf = "kernel"
+                arr = arr.T.reshape((heads, -1, arr.shape[0]) if scopes[-1] == "out"
+                                    else (arr.shape[1], heads, -1))
+            elif scopes[-1] != "out":
+                arr = arr.reshape(heads, -1)
+            arr = np.ascontiguousarray(arr)
         elif isinstance(parent, nn.PReLU):
             leaf = "alpha"
         elif leaf == "weight":

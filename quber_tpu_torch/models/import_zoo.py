@@ -1,0 +1,240 @@
+"""Importers of the reference's released checkpoints: a torch state dict of
+the reference's module tree -> the state dict of the port's module.
+
+Port of the MSMFormer and UOAIS-Net importers of
+quber_tpu/models/import_zoo.py, with the same key maps, written straight
+onto the port's modules (which carry the flax port's names, in torch's
+layouts, so that no tensor is transposed): `import_msmformer` fills
+models/msmformer_pretrained.PretrainedMSMFormer and `import_uoais_net`
+models/uoais_net_pretrained.UOAISNetPretrained. Every key of the checkpoint
+must be mapped (or be a known buffer that carries no network state), else
+KeyError names the ones left (strict, the default).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+class _Builder:
+    """Collects the port's state dict from inserts of reference keys and
+    records which reference keys were read."""
+
+    def __init__(self, sd: dict):
+        self.sd = {k: torch.as_tensor(np.asarray(v)) if not isinstance(v, torch.Tensor) else v
+                   for k, v in sd.items()}
+        self.out: dict = {}
+        self.used: set = set()
+
+    def take(self, key):
+        self.used.add(key)
+        return self.sd[key].detach().float().clone()
+
+    def put(self, path, leaf, value):
+        name = ".".join(list(path) + [leaf])
+        if name in self.out:
+            raise KeyError(f"two checkpoint keys map onto {name}")
+        self.out[name] = value
+
+    def param(self, path, leaf, tkey):
+        self.put(path, leaf, self.take(tkey))
+
+    def dense(self, path, tkey):
+        """A torch Conv2d / Linear / ConvTranspose2d (weight and optional bias)."""
+        self.param(path, "weight", f"{tkey}.weight")
+        if f"{tkey}.bias" in self.sd:
+            self.param(path, "bias", f"{tkey}.bias")
+
+    def bn(self, path, tkey):
+        """torch BatchNorm2d -> the four tensors of a BatchNorm of the port."""
+        for leaf in ("weight", "bias", "running_mean", "running_var"):
+            self.param(path, leaf, f"{tkey}.{leaf}")
+        self.used.add(f"{tkey}.num_batches_tracked")
+
+    def layernorm(self, path, tkey):
+        self.param(path, "weight", f"{tkey}.weight")
+        self.param(path, "bias", f"{tkey}.bias")
+
+    def result(self, strict: bool) -> dict:
+        unused = sorted(k for k in set(self.sd) - self.used
+                        if not k.endswith("num_batches_tracked"))
+        if strict and unused:
+            raise KeyError(f"{len(unused)} unmapped checkpoint keys, e.g. {unused[:5]}")
+        return self.out
+
+
+# ---------------------------------------------------------------------------
+# MSMFormer (the released "pretrained" meta-architecture)
+# ---------------------------------------------------------------------------
+
+_RESNET34_BLOCKS = (3, 4, 6, 3)
+
+
+def _ucn_trunk(b, path, pfx):
+    b.dense(path + ["conv1"], f"{pfx}conv1")
+    b.bn(path + ["bn1"], f"{pfx}bn1")
+    for li, n in enumerate(_RESNET34_BLOCKS):
+        for bi in range(n):
+            t = f"{pfx}layer{li + 1}.{bi}"
+            f = path + [f"layer{li + 1}_{bi}"]
+            b.dense(f + ["conv1"], f"{t}.conv1")
+            b.bn(f + ["bn1"], f"{t}.bn1")
+            b.dense(f + ["conv2"], f"{t}.conv2")
+            b.bn(f + ["bn2"], f"{t}.bn2")
+            if f"{t}.downsample.0.weight" in b.sd:
+                b.dense(f + ["downsample_conv"], f"{t}.downsample.0")
+                b.bn(f + ["downsample_bn"], f"{t}.downsample.1")
+
+
+def detect_ucn_prefixes(state_dict: dict) -> tuple[str, str]:
+    """(rgb_prefix, depth_prefix) of the two ResNet-34-8s branches, found by
+    their 7x7 stem convs; the prefixes end with a dot."""
+    cands = sorted({k[:-len("conv1.weight")] for k, v in state_dict.items()
+                    if k.endswith("conv1.weight") and tuple(np.shape(v))[2:] == (7, 7)
+                    and len(np.shape(v)) == 4})
+    if len(cands) != 2:
+        raise KeyError(f"expected 2 stem convs, found prefixes {cands}")
+    if any(h in cands[0].lower() for h in ("depth", "xyz", "d_")):
+        return cands[1], cands[0]
+    return cands[0], cands[1]
+
+
+def _mha(b, path, tkey):
+    """nn.MultiheadAttention's packed in_proj + out_proj -> q / k / v / out."""
+    w = b.take(f"{tkey}.in_proj_weight")
+    bias = b.take(f"{tkey}.in_proj_bias")
+    e = w.shape[0] // 3
+    for i, name in enumerate(("q_proj", "k_proj", "v_proj")):
+        b.put(path + [name], "weight", w[i * e:(i + 1) * e].clone())
+        b.put(path + [name], "bias", bias[i * e:(i + 1) * e].clone())
+    b.dense(path + ["out_proj"], f"{tkey}.out_proj")
+
+
+def import_msmformer(state_dict: dict, strict: bool = True, dec_layers: int | None = None) -> dict:
+    """A released MSMFormer state dict -> PretrainedMSMFormer's: the UCN
+    backbone (`pretrained_backbone.*`, branch prefixes found from the keys),
+    `sem_seg_head.pixel_decoder.mask_features` and the decoder
+    `sem_seg_head.predictor.*`. The criterion's buffers and the pixel
+    normalisers carry no network state."""
+    sd = {k.removeprefix("module."): v for k, v in state_dict.items()}
+    b = _Builder(sd)
+    bb = {k[len("pretrained_backbone."):]: v for k, v in sd.items()
+          if k.startswith("pretrained_backbone.")}
+    rgb_pfx, depth_pfx = detect_ucn_prefixes(bb)
+    for branch, pfx in (("rgb_branch", rgb_pfx), ("depth_branch", depth_pfx)):
+        _ucn_trunk(b, ["backbone", branch, "trunk"], f"pretrained_backbone.{pfx}")
+        b.dense(["backbone", branch, "fc"], f"pretrained_backbone.{pfx}fc")
+    b.dense(["mask_features"], "sem_seg_head.pixel_decoder.mask_features")
+
+    p, f = "sem_seg_head.predictor", ["predictor"]
+    if dec_layers is None:
+        dec_layers = 1 + max(int(k.split(".")[3]) for k in sd
+                             if k.startswith(f"{p}.transformer_ffn_layers."))
+    for i in range(dec_layers):
+        _mha(b, f + [f"cross_attn_{i}"], f"{p}.transformer_cross_attention_layers.{i}.meanshift_attn")
+        b.layernorm(f + [f"cross_norm_{i}"], f"{p}.transformer_cross_attention_layers.{i}.norm")
+        _mha(b, f + [f"self_attn_{i}"], f"{p}.transformer_self_attention_layers.{i}.self_attn")
+        b.layernorm(f + [f"self_norm_{i}"], f"{p}.transformer_self_attention_layers.{i}.norm")
+        for name in ("linear1", "linear2"):
+            b.dense(f + [f"ffn_{i}", name], f"{p}.transformer_ffn_layers.{i}.{name}")
+        b.layernorm(f + [f"ffn_{i}", "norm"], f"{p}.transformer_ffn_layers.{i}.norm")
+    b.layernorm(f + ["decoder_norm"], f"{p}.decoder_norm")
+    for name in ("query_feat", "query_embed", "level_embed"):
+        b.put(f, name, b.take(f"{p}.{name}.weight"))
+    b.dense(f + ["input_proj_0"], f"{p}.input_proj.0")
+    b.dense(f + ["class_embed"], f"{p}.class_embed")
+    for i in range(3):
+        b.dense(f + ["mask_embed", f"layers_{i}"], f"{p}.mask_embed.layers.{i}")
+    for k in sd:
+        if k.startswith("criterion.") or k in ("pixel_mean", "pixel_std"):
+            b.used.add(k)
+    return b.result(strict)
+
+
+# ---------------------------------------------------------------------------
+# UOAIS-Net (detectron2 GeneralizedRCNN, R50_rgbdconcat_mlc_occatmask_hom_concat)
+# ---------------------------------------------------------------------------
+
+
+def _d2conv(b, path, tkey, norm: bool = False):
+    """detectron2 Conv2d (+ its fused FrozenBN `.norm`) -> a ConvNorm."""
+    b.dense(path + ["conv"], tkey)
+    if norm:
+        for leaf in ("weight", "bias", "running_mean", "running_var"):
+            b.param(path + ["norm"], leaf, f"{tkey}.norm.{leaf}")
+
+
+def _d2_r50_trunk(b, path, tprefix, stage_prefix="res"):
+    """A standard detectron2 R50 trunk (BasicStem, res2-res5, FrozenBN); the
+    depth trunk names its stages `res_2`..`res_5`."""
+    _d2conv(b, path + ["stem", "conv1"], f"{tprefix}.stem.conv1", norm=True)
+    for s, n in zip(range(2, 6), (3, 4, 6, 3)):
+        for blk in range(n):
+            t = f"{tprefix}.{stage_prefix}{s}.{blk}"
+            f = path + [f"res{s}_{blk}"]
+            for c in ("conv1", "conv2", "conv3"):
+                _d2conv(b, f + [c], f"{t}.{c}", norm=True)
+            if f"{t}.shortcut.weight" in b.sd:
+                _d2conv(b, f + ["shortcut"], f"{t}.shortcut", norm=True)
+
+
+def _hom_mask_head(b, head, prefix):
+    t = f"roi_heads.{head}"
+    for i in range(3):
+        _d2conv(b, [head, f"{prefix}_guidance_layer{i}"], f"{t}.{prefix}_guidance_layer{i}")
+    for k in range(1, 5):
+        _d2conv(b, [head, f"{prefix}_mask_fcn{k}"], f"{t}.{prefix}_mask_fcn{k}")
+    for i in range(3):
+        _d2conv(b, [head, f"{prefix}_mlc_layer{i}"], f"{t}.{prefix}_mlc_layer{i}")
+    b.dense([head, "deconv"], f"{t}.deconv")
+    _d2conv(b, [head, "predictor"], f"{t}.predictor")
+
+
+def import_uoais_net(state_dict: dict, strict: bool = True) -> dict:
+    """A released UOAIS-Net state dict -> UOAISNetPretrained's. The pixel
+    normalisers, the anchor tables and the occlusion head's trailing deconv
+    (its output is used only when occlusion is not the last head) carry no
+    state the deployed model reads."""
+    b = _Builder(state_dict)
+    _d2_r50_trunk(b, ["bottom_up_rgb"], "backbone.bottom_up_rgb", "res")
+    _d2_r50_trunk(b, ["bottom_up_depth"], "backbone.bottom_up_depth", "res_")
+    for s in range(2, 6):
+        _d2conv(b, [f"fusion_layer_{s}"], f"backbone.fusion_layers.fusion_layer_{s}")
+        _d2conv(b, [f"fpn_lateral{s}"], f"backbone.fpn_lateral{s}")
+        _d2conv(b, [f"fpn_output{s}"], f"backbone.fpn_output{s}")
+    rpn = "proposal_generator.rpn_head"
+    _d2conv(b, ["rpn_conv"], f"{rpn}.conv")
+    _d2conv(b, ["rpn_objectness"], f"{rpn}.objectness_logits")
+    _d2conv(b, ["rpn_anchor_deltas"], f"{rpn}.anchor_deltas")
+    for i in range(1, 5):
+        _d2conv(b, [f"box_head_conv{i}"], f"roi_heads.box_head.conv{i}")
+    b.dense(["cls_score"], "roi_heads.box_predictor.cls_score")
+    b.dense(["bbox_pred"], "roi_heads.box_predictor.bbox_pred")
+    b.dense(["extraction_mlc_layer0"], "roi_heads.extraction_mlc_layer0")
+    _d2conv(b, ["extraction_mlc_layer1"], "roi_heads.extraction_mlc_layer1")
+    _d2conv(b, ["extraction_mlc_layer2"], "roi_heads.extraction_mlc_layer2")
+    _hom_mask_head(b, "visible_mask_head", "visible")
+    _hom_mask_head(b, "amodal_mask_head", "amodal")
+    t, f = "roi_heads.occ_cls_mask_head", ["occ_cls_mask_head"]
+    for i in range(3):
+        _d2conv(b, f + [f"occlusion_guidance_layer{i}"], f"{t}.occlusion_guidance_layer{i}")
+    for k in range(1, 5):
+        _d2conv(b, f + [f"_occ_cls_fcn{k}"], f"{t}._occ_cls_fcn{k}")
+    for i in range(3):
+        _d2conv(b, f + [f"occ_cls__mlc_layer{i}"], f"{t}.occ_cls__mlc_layer{i}")
+    b.dense(f + ["predictor"], f"{t}.predictor")
+    for k in b.sd:
+        if (k in ("pixel_mean", "pixel_std") or k.startswith("proposal_generator.anchor_generator")
+                or k.startswith("roi_heads.occ_cls_mask_head.deconv")):
+            b.used.add(k)
+    return b.result(strict)
+
+
+def load_reference_checkpoint(path: str) -> dict:
+    """A reference .pth -> its state dict (the `model` entry where the file
+    wraps it, as detectron2 and the UCN trainer save)."""
+    sd = torch.load(path, map_location="cpu", weights_only=False)
+    if isinstance(sd, dict) and isinstance(sd.get("model"), dict):
+        sd = sd["model"]
+    return {k: v for k, v in sd.items() if hasattr(v, "shape")}

@@ -53,6 +53,103 @@ class Conv2d(nn.Conv2d):
         return y + self.bias.to(dt)[:, None, None]
 
 
+def flax_softmax(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """jax.nn.softmax in the input's type, op by op: exp(x - max) over its
+    sum (in bfloat16 each step rounds, as XLA's do)."""
+    u = torch.exp(x - x.amax(dim=dim, keepdim=True).detach())
+    return u / u.sum(dim=dim, keepdim=True)
+
+
+class Dense(nn.Linear):
+    """nn.Linear computing in `compute_dtype`, like flax's nn.Dense(dtype=...):
+    input, kernel and bias are cast to it; below float32 the bias is added to
+    the rounded product, as flax adds it."""
+
+    compute_dtype = torch.float32
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        if dt == torch.float32 or self.bias is None:
+            bias = None if self.bias is None else self.bias.to(dt)
+            return F.linear(x.to(dt), self.weight.to(dt), bias)
+        return F.linear(x.to(dt), self.weight.to(dt)) + self.bias.to(dt)
+
+
+class LayerNorm(nn.Module):
+    """flax nn.LayerNorm over the last axis: statistics in float32 (the
+    variance as E[x^2] - E[x]^2), (x - mean) * (rsqrt(var + eps) * scale) +
+    bias, and the result in `compute_dtype` (float32 unless a model sets
+    bfloat16). flax's default eps is 1e-6."""
+
+    compute_dtype = torch.float32
+
+    def __init__(self, channels: int, eps: float = 1e-6):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x):
+        x = x.float()
+        mean = x.mean(dim=-1, keepdim=True)
+        var = ((x * x).mean(dim=-1, keepdim=True) - mean * mean).clamp_min(0)
+        y = (x - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
+        return y.to(self.compute_dtype)
+
+
+class ConvTranspose2x2(nn.Module):
+    """flax nn.ConvTranspose(features, (2, 2), strides=(2, 2)): each input
+    pixel becomes a 2x2 block, out[2i + a, 2j + b] = x[i, j] . K[1 - a, 1 - b]
+    (flax does not flip the kernel as torch's ConvTranspose2d does). The
+    weight is [out, in, 2, 2], K transposed as models/from_jax carries a conv
+    kernel; computes in `compute_dtype`, the bias added after rounding."""
+
+    compute_dtype = torch.float32
+
+    def __init__(self, in_channels: int, features: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(features, in_channels, 2, 2))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        w = self.weight.to(dt).flip(2, 3).transpose(0, 1)
+        if dt == torch.float32:
+            return F.conv_transpose2d(x.to(dt), w, self.bias, stride=2)
+        return F.conv_transpose2d(x.to(dt), w, stride=2) + self.bias.to(dt)[:, None, None]
+
+
+class MultiHeadDotProductAttention(nn.Module):
+    """flax nn.MultiHeadDotProductAttention(num_heads) for self-attention on
+    [B, L, E] (no mask, no dropout): query / key / value projections, logits
+    q . k / sqrt(head_dim), softmax, the heads merged by `out`. flax keeps
+    the projections as [E, heads, head_dim] (and `out` as [heads, head_dim,
+    E]); here they are Dense layers over the flattened heads. Computes in
+    `compute_dtype` (the Dense layers in their own, which a model sets to
+    the same), as flax's dtype does, the softmax included."""
+
+    compute_dtype = torch.float32
+
+    def __init__(self, dim: int, num_heads: int):
+        super().__init__()
+        self.num_heads = num_heads
+        self.query = Dense(dim, dim)
+        self.key = Dense(dim, dim)
+        self.value = Dense(dim, dim)
+        self.out = Dense(dim, dim)
+
+    def forward(self, x):
+        b, l, e = x.shape
+        nh, dt = self.num_heads, self.compute_dtype
+        hd = e // nh
+        q, k, v = (lin(x).reshape(b, l, nh, hd).transpose(1, 2)
+                   for lin in (self.query, self.key, self.value))
+        q = q / torch.tensor(hd, dtype=torch.float32).sqrt().to(dt)
+        attn = flax_softmax(q @ k.transpose(-2, -1))
+        y = (attn @ v).transpose(1, 2).reshape(b, l, e)
+        return self.out(y)
+
+
 class GroupNorm(nn.GroupNorm):
     """flax nn.GroupNorm without a dtype: statistics and output in float32,
     whatever the input's type."""

@@ -47,6 +47,18 @@ class DeepLabStem(nn.Module):
         return max_pool_same(x, 3, 2)
 
 
+class BasicStem(nn.Module):
+    """The standard 7x7 stride-2 stem + maxpool, stride 4 (detectron2's
+    BasicStem)."""
+
+    def __init__(self, in_channels: int, out_channels: int = 64, norm: str = "FrozenBN"):
+        super().__init__()
+        self.conv1 = ConvNorm(in_channels, out_channels, 7, strides=2, norm=norm, act=F.relu)
+
+    def forward(self, x):
+        return max_pool_same(self.conv1(x), 3, 2)
+
+
 class Bottleneck(nn.Module):
     """detectron2 BottleneckBlock; stride_in_1x1 puts the stride on conv1."""
 
@@ -76,9 +88,10 @@ class ResNetTrunk(nn.Module):
     """One DeepLab-ResNet trunk returning {res2, res3, res5} features:
     res4 strides by 2, res5 dilates by 2 with multi-grid and stride 1. With
     `remat`, a block's activations are recomputed in the backward pass and
-    not kept (training memory for operations)."""
+    not kept (training memory for operations). stem_type "basic" with
+    res5_dilation 1 is the standard detectron2 R50 (7x7 stem, strided res5)."""
 
-    def __init__(self, in_channels: int, depth: int = 50,
+    def __init__(self, in_channels: int, depth: int = 50, stem_type: str = "deeplab",
                  stem_out_channels: int = 128, res2_out_channels: int = 256,
                  res5_dilation: int = 2,
                  res5_multi_grid: Sequence[int] = (1, 2, 4),
@@ -86,7 +99,8 @@ class ResNetTrunk(nn.Module):
                  norm: str = "FrozenBN", remat: bool = False):
         super().__init__()
         self.remat = remat
-        self.stem = DeepLabStem(in_channels, stem_out_channels, norm)
+        stem_cls = DeepLabStem if stem_type == "deeplab" else BasicStem
+        self.stem = stem_cls(in_channels, stem_out_channels, norm)
         self.out_features = tuple(out_features)
         self.out_channels = {}
         num_blocks = BLOCKS_PER_STAGE[depth]

@@ -184,6 +184,29 @@ OSD_CAMERA = {"fx": 550.0, "fy": 550.0, "x_offset": 320.0, "y_offset": 240.0,
               "img_width": 640, "img_height": 480}
 
 
+def read_rgb_xyz(rgb_path: str, depth_path: str, size=(480, 640)):
+    """A frame as the reference's UCN and MSMFormer wrappers read it: the
+    colour PNG in BGR order (cv2.imread), bilinear-resized to `size` and
+    flipped to RGB before standardisation; depth in millimetres (a .npy in
+    metres), nearest-resized, then a point cloud with the OSD intrinsics
+    centred on the image. Returns (RGB [H, W, 3], XYZ [H, W, 3]) float32."""
+    from quber_tpu_torch.data import png
+    from quber_tpu_torch.ops.preprocess import (
+        compute_xyz, resize_linear, resize_nearest, standardize_image)
+
+    h, w = size
+    rgb = resize_linear(png.imread(rgb_path, bgr=True), size)
+    rgb_in = standardize_image(rgb[..., ::-1])
+    if depth_path and depth_path.endswith(".npy"):
+        depth_m = np.load(depth_path)
+    elif depth_path:
+        depth_m = png.imread(depth_path).astype(np.float32) / 1000.0
+    else:
+        depth_m = np.zeros(size, np.float32)
+    camera = dict(OSD_CAMERA, x_offset=w / 2.0, y_offset=h / 2.0, img_width=w, img_height=h)
+    return rgb_in, compute_xyz(resize_nearest(depth_m, size), camera)
+
+
 class UCNBaseModel:
     """Evaluation wrapper: predict(rgb_path, depth_path) -> (masks [N, 480,
     640] bool, None, seconds).
@@ -257,20 +280,7 @@ class UCNBaseModel:
 
     def read_frame(self, rgb_path: str, depth_path: str):
         """(standardised RGB [H, W, 3] float32, XYZ [H, W, 3] float32)."""
-        from quber_tpu_torch.data import png
-        from quber_tpu_torch.ops.preprocess import (
-            compute_xyz, resize_linear, resize_nearest, standardize_image)
-
-        size = (self.H, self.W)
-        rgb = resize_linear(png.imread(rgb_path, bgr=True), size)
-        rgb_in = standardize_image(rgb[..., ::-1])
-        if depth_path and depth_path.endswith(".npy"):
-            depth_m = np.load(depth_path)
-        elif depth_path:
-            depth_m = png.imread(depth_path).astype(np.float32) / 1000.0
-        else:
-            depth_m = np.zeros(size, np.float32)
-        return rgb_in, compute_xyz(resize_nearest(depth_m, size), OSD_CAMERA)
+        return read_rgb_xyz(rgb_path, depth_path, (self.H, self.W))
 
     def predict(self, rgb_path, depth_path):
         rgb_in, xyz = self.read_frame(rgb_path, depth_path)

@@ -25,7 +25,10 @@ def build_parser() -> argparse.ArgumentParser:
                         default="configs/mask_refiner_rgbd_concat_l2_gn_hf_m_b_f_c_o_l3_e2_b8.yaml")
     parser.add_argument("--base-model", default="gt",
                         help="gt | empty | npy | perturbed-gt | perturbed-gt-structural | ucn | "
-                             "ucn-zoomin (UCN's weights: $QUBER_UCN_CKPT)")
+                             "ucn-zoomin | msmformer | msmformer-zoomin | msmformer-pretrained | "
+                             "uoaisnet | uoaisnet-amodal | uoaisnet-pretrained (weights: "
+                             "$QUBER_UCN_CKPT, $QUBER_MSMFORMER_NATIVE_CKPT, "
+                             "$QUBER_MSMFORMER_CKPT, $QUBER_UOAISNET_CKPT, $QUBER_UOAIS_CKPT)")
     parser.add_argument("--refiner-model", default="maskrefiner",
                         help="maskrefiner | maskrefiner-nofilter | identity | npy | save")
     parser.add_argument("--test-dataset", default="OSD",

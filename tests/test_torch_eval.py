@@ -269,7 +269,7 @@ def test_run_eval_matches_jax(case, refiners, osd6, trees, tmp_path):
     assert set(got["seconds"]) >= {"annotation", "base", "metrics"}
 
 
-@pytest.mark.parametrize("name", ["msmformer-pretrained", "uoaisnet", "sam", "detic"])
+@pytest.mark.parametrize("name", ["uoisnet3d", "grounded-sam", "sam", "detic"])
 def test_zoo_base_models_wait_for_item_14(name):
     with pytest.raises(NotImplementedError, match="item 14"):
         tbase.build_base_model(name, "OSD")

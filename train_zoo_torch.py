@@ -3,23 +3,36 @@
 scenes (one GPU).
 
     python3 train_zoo_torch.py --model ucn --max-iter 2000 --output-dir output/ucn_synth
+    python3 train_zoo_torch.py --model msmformer --max-iter 2000 --output-dir output/msmformer_synth
+    python3 train_zoo_torch.py --model uoaisnet --size 192 --max-iter 3000 --output-dir output/uoaisnet_synth
 
-Counterpart of tools/train_zoo.py for quber_tpu_torch, with its flags and
-defaults and its recipe for UCN: --size scenes rendered from --seed
-(standardised RGB, the XYZ point cloud with the OSD intrinsics, compact
-instance labels) and staged on the device once; one scene a step in the
-order of numpy's default_rng(seed) permutations; Adam at --lr over every
-variable, the BatchNorm statistics included (the reference's step takes its
-gradient over the whole variable tree); the prototype metric loss over 13
-clusters. Every --checkpoint-period steps the weights go to
-<output-dir>/ckpt in the JAX package's variable layout (a save_params
-directory), and at the end also to <output-dir>/ucn_int8.npz (the int8
-archive the JAX package reads). The evaluation harness takes either:
+Counterpart of tools/train_zoo.py for quber_tpu_torch, with its flags,
+defaults and recipes. Each renders --size scenes from --seed, takes one
+scene a step in the order of numpy's default_rng(seed) permutations and
+Adam at --lr over every variable:
+  * ucn: standardised RGB, the XYZ point cloud (the OSD intrinsics) and
+    compact instance labels, staged on the device once; the prototype
+    metric loss over 13 clusters; the BatchNorm statistics are trained too
+    (the reference's step takes its gradient over the whole variable tree);
+  * msmformer: the same scenes; a bfloat16 MSMFormer (the evaluation
+    wrapper's) and the Hungarian set loss against the instance masks taken
+    every 4th pixel (the mask logits' stride);
+  * uoaisnet: the raw RGB (0-255), the normalised depth x3 and the amodal
+    and visible masks of up to 12 objects with their amodal boxes, staged
+    on the device once; a float32 UOAIS-Net with FrozenBN, the ground-truth
+    boxes spliced into the proposals, the detector's losses. The FrozenBN
+    tensors are parameters of the reference's step and Adam moves them too.
+Every --checkpoint-period steps the weights go to <output-dir>/ckpt in the
+JAX package's variable layout (a save_params directory), and at the end
+also to <output-dir>/<model>_int8.npz (the int8 archive the JAX package
+reads). The evaluation harness takes either:
 
     QUBER_UCN_CKPT=output/ucn_synth/ckpt python3 run_eval_torch.py --base-model ucn ...
+    QUBER_MSMFORMER_NATIVE_CKPT=output/msmformer_synth/ckpt ... --base-model msmformer
+    QUBER_UOAISNET_CKPT=output/uoaisnet_synth/ckpt ... --base-model uoaisnet
 
-Runs on the GPU unless --device cpu. Only --model ucn is ported; the other
-models exit with a message naming their item in ROADMAP.md.
+Runs on the GPU unless --device cpu. The other models of tools/train_zoo.py
+exit with a message naming their item in ROADMAP.md.
 """
 
 import argparse
@@ -68,15 +81,51 @@ def make_labeled_scenes(n, h, w, seed, depth_range):
     return {k: np.stack(v) for k, v in out.items()}
 
 
+def make_scenes(n, h, w, seed, depth_range):
+    """Scenes for the UOAIS-Net trainer, stacked: rgb float32 0-255 (the
+    evaluation wrapper feeds the raw BGR; the rendered colours are
+    channel-symmetric), depth normalised to the 0-255 x3 encoding, and per
+    slot the amodal box, the visible and amodal masks and a validity flag."""
+    import numpy as np
+
+    from quber_tpu_torch.data.synthetic import render_scene
+    from quber_tpu_torch.ops.preprocess import normalize_depth
+
+    rng = np.random.RandomState(seed)
+    out = {k: [] for k in ("rgb", "depth", "boxes", "vis", "amo", "valid")}
+    for _ in range(n):
+        rgb, depth_mm, vis, amo = render_scene(rng, h, w, depth_range=depth_range,
+                                               return_amodal=True)
+        boxes = np.zeros((SLOTS, 4), np.float32)
+        gvis = np.zeros((SLOTS, h, w), np.float32)
+        gamo = np.zeros((SLOTS, h, w), np.float32)
+        valid = np.zeros((SLOTS,), bool)
+        for i in range(min(vis.shape[0], SLOTS)):
+            ys, xs = np.nonzero(amo[i])
+            boxes[i] = (xs.min(), ys.min(), xs.max() + 1, ys.max() + 1)
+            gvis[i], gamo[i], valid[i] = vis[i], amo[i], True
+        out["rgb"].append(rgb.astype(np.float32))
+        out["depth"].append(normalize_depth(depth_mm).astype(np.float32))
+        out["boxes"].append(boxes)
+        out["vis"].append(gvis)
+        out["amo"].append(gamo)
+        out["valid"].append(valid)
+    return {k: np.stack(v) for k, v in out.items()}
+
+
+# the pools' [n, H, W, 3] images; the mask stacks [n, SLOTS, H, W] stay as they are
+IMAGE_KEYS = ("rgb", "xyz", "depth", "offsets")
+
+
 def stage(pool, device):
-    """The scene pool on `device`, once; [n, H, W, C] images become
+    """The scene pool on `device`, once; the [n, H, W, C] images become
     [n, C, H, W]. A step then indexes it there."""
     import torch
 
     out = {}
     for k, v in pool.items():
         t = torch.from_numpy(v)
-        if v.ndim == 4:
+        if k in IMAGE_KEYS:
             t = t.permute(0, 3, 1, 2).contiguous()
         out[k] = t.to(device)
     return out
@@ -139,20 +188,110 @@ def make_ucn(seed, lr, device):
     return model, torch.optim.Adam(model.parameters(), lr=lr)
 
 
-def train_ucn(args, device):
+def make_msmformer(seed, lr, device, dtype=None):
+    """An MSMFormer initialised from `seed` on `device`, in bfloat16 (the
+    evaluation wrapper's type) unless `dtype` says otherwise, and Adam over
+    all its parameters."""
+    import torch
+
+    from quber_tpu_torch.models.msmformer import MSMFormer
+
+    model = MSMFormer(dtype=dtype or torch.bfloat16)
+    model.reset_parameters(torch.Generator().manual_seed(seed))
+    model = model.to(device).eval()
+    return model, torch.optim.Adam(model.parameters(), lr=lr)
+
+
+def make_msmformer_step(model, optimizer):
+    """step(pool, scene) -> (loss, parts): one Adam update of `model` on
+    scene `scene` of a staged labelled pool, against its instance masks at
+    the mask logits' stride 4."""
+    import torch
+
+    from quber_tpu_torch.models.msmformer import msmformer_set_loss
+
+    def step(pool, scene):
+        labels = pool["labels"][scene]
+        ids = 1 + torch.arange(SLOTS, device=labels.device)
+        gt = (labels[::4, ::4][None] == ids[:, None, None]).float()
+        out = model(pool["rgb"][scene][None], pool["xyz"][scene][None])
+        parts = msmformer_set_loss(out, gt[None], pool["valid"][scene][None])
+        loss = sum(parts.values())
+        optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        optimizer.step()
+        return loss.detach(), {k: v.detach() for k, v in parts.items()}
+
+    return step
+
+
+def make_uoaisnet(seed, lr, device):
+    """A float32 UOAIS-Net with FrozenBN initialised from `seed` on
+    `device`, its FrozenBN tensors made parameters (the reference's step
+    differentiates and updates them), and Adam over all its parameters."""
+    import torch
+    from torch import nn
+
+    from quber_tpu_torch.models.layers import FrozenBatchNorm
+    from quber_tpu_torch.models.uoais_net import UOAISNet
+
+    model = UOAISNet()
+    model.reset_parameters(torch.Generator().manual_seed(seed))
+    for mod in model.modules():
+        if isinstance(mod, FrozenBatchNorm):
+            for name in ("weight", "bias", "running_mean", "running_var"):
+                t = getattr(mod, name)
+                delattr(mod, name)
+                mod.register_parameter(name, nn.Parameter(t))
+    model = model.to(device).eval()
+    return model, torch.optim.Adam(model.parameters(), lr=lr)
+
+
+def make_uoaisnet_step(model, optimizer):
+    """step(pool, scene) -> (loss, parts): one Adam update of `model` on
+    scene `scene` of a staged make_scenes pool, the ground-truth boxes
+    spliced into the proposals."""
+    import torch
+
+    from quber_tpu_torch.models.uoais_net import uoais_losses
+
+    def step(pool, scene):
+        boxes, valid = pool["boxes"][scene], pool["valid"][scene]
+        out = model(pool["rgb"][scene][None], pool["depth"][scene][None],
+                    gt_proposals=torch.where(valid[:, None], boxes, 0.0))
+        parts = uoais_losses(out, boxes, pool["vis"][scene], pool["amo"][scene], valid)
+        loss = sum(parts.values())
+        optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        optimizer.step()
+        return loss.detach(), {k: v.detach() for k, v in parts.items()}
+
+    return step
+
+
+RECIPES = {
+    # model: (scene maker, model maker, step maker)
+    "ucn": (make_labeled_scenes, make_ucn, make_ucn_step),
+    "msmformer": (make_labeled_scenes, make_msmformer, make_msmformer_step),
+    "uoaisnet": (make_scenes, make_uoaisnet, make_uoaisnet_step),
+}
+
+
+def train(args, device):
+    """The recipe of --model: render and stage the pool, train, save."""
     import torch
 
     from quber_tpu_torch.models.from_jax import state_dict_to_jax
     from quber_tpu_torch.train.checkpoint import save_params, save_quantized_params
 
-    scenes = make_labeled_scenes(args.size, args.height, args.width, args.seed,
-                                 tuple(args.depth_range))
+    make_pool, make_model, make_step = RECIPES[args.model]
+    scenes = make_pool(args.size, args.height, args.width, args.seed, tuple(args.depth_range))
     pool = stage(scenes, device)
     del scenes
     pool_mb = sum(t.numel() * t.element_size() for t in pool.values()) / 2**20
     print(f"scene pool on {device}: {pool_mb:.1f} MiB", flush=True)
-    model, optimizer = make_ucn(args.seed, args.lr, device)
-    ucn_step = make_ucn_step(model, optimizer)
+    model, optimizer = make_model(args.seed, args.lr, device)
+    train_step = make_step(model, optimizer)
     ckpt_dir = os.path.abspath(os.path.join(args.output_dir, "ckpt"))
     os.makedirs(ckpt_dir, exist_ok=True)
     if device.type == "cuda":
@@ -160,7 +299,7 @@ def train_ucn(args, device):
     timing = {"t0": time.time()}
 
     def step(it, scene):
-        out = ucn_step(pool, scene)
+        out = train_step(pool, scene)
         if it == 1:  # the first step carries cuDNN's set-up
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
@@ -178,7 +317,7 @@ def train_ucn(args, device):
         per_step = (time.time() - timing["t1"]) / (args.max_iter - 1)
         print(f"[timing] s_per_step={per_step:.4f} over steps 2-{args.max_iter} "
               "(checkpoints included)", flush=True)
-    save_quantized_params(os.path.join(args.output_dir, "ucn_int8.npz"),
+    save_quantized_params(os.path.join(args.output_dir, f"{args.model}_int8.npz"),
                           state_dict_to_jax(model))
 
 
@@ -210,7 +349,7 @@ def build_parser():
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.model != "ucn":
+    if args.model not in RECIPES:
         print(f"train_zoo_torch: --model {args.model} is not ported yet "
               "(ROADMAP.md Queue 1 item 14)", file=sys.stderr)
         return 2
@@ -230,7 +369,7 @@ def main(argv=None):
         args.output_dir = f"output/{args.model}_synth"
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     print(f"device: {device} ({name}); rendering {args.size} scenes ...", flush=True)
-    train_ucn(args, device)
+    train(args, device)
     return 0
 
 
