@@ -151,24 +151,33 @@ Phases (any failure ends the run with a non-zero exit code):
      frame through $QUBER_CGNET_CKPT;
  23. the base-segmenter zoo: (a) MSMFormer and UOAIS-Net at 480x640 from
      one seeded init, float32 (TF32 off) on the card against the CPU (every
-     output within ZOO_RTOL of max |CPU|, the selections equal), then
+     output within ZOO_RTOL of max |CPU|, the selections equal; a TF32
+     forward of UOAIS-Net must fail its gate), then
      bfloat16 on the card (finite, the distance to float32 printed); (b)
      train_zoo_torch's msmformer and uoaisnet steps at 480x640 on two
      rendered scenes, card against CPU from the same init in float32, the
      second step from the CPU's state after the first (losses rtol 1e-3, at
      MSMFormer's second step those that tied queries do not move: dice and
-     objectness; first gradients cosine >= 0.999 tensor by tensor), then 40 of the
+     objectness; each MSMFormer step's losses, the mask loss included,
+     rtol 1e-3 of the CPU's criterion on the card's own forward; first
+     gradients cosine >= 0.999 tensor by tensor), then 40 of the
      recipes' own steps each on the card (MSMFormer's in bfloat16)
      (ms a step, peak memory), the weights saved as train_zoo_torch saves
      them; (c) phase 14's frames through run_eval with base msmformer and
-     uoaisnet (those weights through $QUBER_MSMFORMER_NATIVE_CKPT and
-     $QUBER_UOAISNET_CKPT) and the flagship int8 refiner, per image and
-     streamed at B = 8, as in phase 21(c), and each wrapper's own device
-     seconds a frame on 4 frames (read and inpaint excluded); (d) two
-     frames of msmformer-zoomin (its float32 model) and one of
-     msmformer-pretrained and uoaisnet-pretrained, each at its wrapper's
-     random init, card against CPU (count equal, >= 99.5% of the labels),
-     and nms_fixed's ms a frame at 1000 boxes;
+     uoaisnet (those weights through $QUBER_MSMFORMER_NATIVE_CKPT, its
+     objectness bias raised so that every query is accepted and its mask
+     logits moved by their median on a training scene, and
+     $QUBER_UOAISNET_CKPT at $QUBER_UOAISNET_THRESH 0, its visible-mask bias
+     raised by its median logit) and the flagship int8 refiner, per image
+     and streamed at B = 8, as in phase 21(c), some base mask with a pixel
+     required, and each wrapper's own device seconds a frame on 4
+     frames (read and inpaint excluded); (d) two frames of msmformer-zoomin
+     (its float32 model, the crop stage's copy accepting every query) and
+     one of msmformer-pretrained (its random init)
+     and uoaisnet-pretrained (torch's default init, seeded), their class and
+     mask biases moved so that they segment, card against CPU (count equal,
+     >= 99.5% of the labels, some mask with a pixel), and nms_fixed's ms a
+     frame at 1000 boxes;
  24. print a JSON line of the kernels' numbers (each row with the launches
      of phases 20-23 beside those of earlier paths), the frame time,
      and as the last line {"ok": true, "device": {...}}.
@@ -177,6 +186,7 @@ Needs CUDA; it has no CPU mode.
 
 from __future__ import annotations
 
+import copy
 import json
 import os
 import statistics
@@ -259,16 +269,32 @@ FG_LOSS_RTOL = 1e-4
 FG_CPU_BATCH = 2  # phase 22(e)'s step on the card against the CPU
 ZOO_SEED = 9  # phase 23's inits and scene
 # phase 23(a)'s float32 forward, card against CPU, as phase 20's: MSMFormer
-# (GroupNorm throughout) read 3.6e-6 (H100, one run). UOAIS-Net's FrozenBN is
-# the identity at init, so its ~70 convolutions run unnormalised on the raw
-# 0-255 input and its mask heads read up to 2.95e-4 there; a bfloat16 forward
-# moves either by ~1e-2
+# (GroupNorm throughout) read 3.66e-6 (H100, one run). UOAIS-Net's FrozenBN is
+# the identity at init, so its trunks run unnormalised on the raw 0-255
+# input and its heads read up to 2.95e-4 there; FrozenBN given the scene's
+# statistics instead brought the RPN's scores within a rounding of each
+# other and the card and the CPU kept other proposals. Its gate is 1e-3,
+# held discriminating by a TF32 forward on the card, which must fail it
 ZOO_RTOL = {"MSMFormer": ABLATION_RTOL, "UOAISNet": 1e-3}
 ZOO_POOL = 2
 ZOO_CPU_STEPS = 2  # card against CPU
 ZOO_CARD_STEPS = 40  # then on the card alone, timed
 NMS_BOXES = 1000  # the released UOAIS-Net's RPN keeps 1000 proposals a level
 BASE_TIMED_FRAMES = 4  # phase 23(c)'s wrapper-only timing
+# phase 23(c): after 40 steps on two scenes no MSMFormer query passes the
+# wrapper's 0.5 objectness on the anchor frames, and its masks pass 0.5 on
+# 0-16 of them from run to run (the steps are not deterministic on the
+# card); UOAIS-Net's detections score below 0.5 with masks that cover no
+# pixel. The evaluated copies accept every MSMFormer query and move its
+# mask logits, and UOAIS-Net's visible-mask bias, by the median logit on a
+# training scene; UOAIS-Net keeps every valid detection
+# ($QUBER_UOAISNET_THRESH)
+ZOO_OBJECTNESS_SHIFT = 40.0
+ZOO_UOAISNET_THRESH = "0"
+# phase 23(d): the released-checkpoint twins' class and mask biases moved as
+# tests/test_torch_zoo_base_pretrained.py moves them, so that they segment
+MSM_CLASS_SHIFT = 4.0
+UOAIS_CLASS_SHIFT, UOAIS_MASK_SHIFT = 4.0, 2.0
 # H100 SXM data sheet: HBM3 rate and fp32 rate outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
@@ -1686,6 +1712,11 @@ def ablation_phase(frames, initial, dev, card):
     return total
 
 
+def _segmented(masks):
+    """The number of masks of a frame that hold a pixel."""
+    return sum(int(np.asarray(m).any()) for m in masks)
+
+
 def _label_agreement(a, b):
     return float((np.asarray(a) == np.asarray(b)).mean())
 
@@ -1806,6 +1837,8 @@ def base_evaluation(base, env, ckpt, root, params, frames, card, label):
                         time.perf_counter() - t0)
     (res1, launches1, init1, masks1, wall1), (res2, launches2, init2, masks2, wall2) = \
         passes.values()
+    if not sum(_segmented(m) for m in init1):
+        raise AssertionError(f"{label} evaluation: the base model segmented no pixel")
     print(f"{label} evaluation per image: launches {launches1}; streamed (B={BATCH}): {launches2}")
     for name in ("instance_stats", "encode_initial_masks", "group_pixels"):
         if launches1[name] != EVAL_FRAMES:
@@ -1836,7 +1869,8 @@ def base_evaluation(base, env, ckpt, root, params, frames, card, label):
              for s in ("initial", "refined")}
     sec = {k: round(v / EVAL_FRAMES, 4) for k, v in res1["seconds"].items()}
     print(f"{label} base -> flagship int8 refiner, {EVAL_FRAMES} frames: "
-          f"instances per frame {[len(m) for m in init1]} -> {[len(m) for m in masks1]}, "
+          f"instances per frame {[len(m) for m in init1]} (with a pixel "
+          f"{[_segmented(m) for m in init1]}) -> {[len(m) for m in masks1]}, "
           f"means {means}, largest streamed difference {worst:.3g}; s/frame {sec}; pass wall "
           f"{wall1:.2f} / {wall2:.2f} s on {card}")
     return launches1, launches2
@@ -2169,10 +2203,22 @@ def _float_outputs(out):
     return {k: v for k, v in out.items() if torch.is_floating_point(v)}
 
 
+def _forward_gaps(got, cpu):
+    """({float output: max |card - CPU| over max |CPU|}, {integer output:
+    equal}) of a forward on the card against the CPU's."""
+    same = {k: bool(torch.equal(got[k].cpu(), v)) for k, v in cpu.items()
+            if not torch.is_floating_point(v)}
+    rel = {k: float((got[k].cpu() - v).nan_to_num(0, 0, 0).abs().max()
+                    / v.nan_to_num(0, 0, 0).abs().max().clamp_min(1e-30))
+           for k, v in _float_outputs(cpu).items()}
+    return rel, same
+
+
 def zoo_forwards(dev, card):
     """Phase 23(a): MSMFormer and UOAIS-Net at 480x640 from one seeded init,
-    float32 (TF32 off) on the card against the CPU, then bfloat16 on the
-    card (finite, its distance to float32 printed)."""
+    float32 (TF32 off) on the card against the CPU (UOAIS-Net's looser gate
+    failed by a TF32 forward), then bfloat16 on the card (finite, its
+    distance to float32 printed)."""
     inputs = _zoo_inputs()
     f32 = {}
     for name, model in _zoo_models().items():
@@ -2184,17 +2230,25 @@ def zoo_forwards(dev, card):
             model.to(dev)
             got = model(*(a.to(dev) for a in args))
         torch.cuda.synchronize()
-        same = {k: bool(torch.equal(got[k].cpu(), v)) for k, v in cpu.items()
-                if not torch.is_floating_point(v)}
-        rel = {k: float((got[k].cpu() - v).nan_to_num(0, 0, 0).abs().max()
-                        / v.nan_to_num(0, 0, 0).abs().max().clamp_min(1e-30))
-               for k, v in _float_outputs(cpu).items()}
+        rel, same = _forward_gaps(got, cpu)
         finite = all(bool(torch.isfinite(v).all()) for v in _float_outputs(got).values())
         print(f"{name} at {H}x{W} float32, card against CPU: max |card - CPU| over max |CPU| "
               f"{({k: float(f'{r:.3g}') for k, r in rel.items()})} (tolerance {ZOO_RTOL[name]}); "
               f"selections equal {same}; CPU forward {cpu_s:.2f} s")
         if not finite or not all(same.values()) or max(rel.values()) > ZOO_RTOL[name]:
             raise AssertionError(f"{name}: the card and the CPU disagree on the forward")
+        if ZOO_RTOL[name] > ABLATION_RTOL:  # the control: TF32 convolutions must fail the gate
+            torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+            with torch.no_grad():
+                tf32 = model(*(a.to(dev) for a in args))
+            torch.cuda.synchronize()
+            torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+            rel, same = _forward_gaps(tf32, cpu)
+            print(f"{name} control, TF32 on the card against the CPU: max |card - CPU| over "
+                  f"max |CPU| {({k: float(f'{r:.3g}') for k, r in rel.items()})}; selections "
+                  f"equal {same} (must fail the tolerance {ZOO_RTOL[name]})")
+            if all(same.values()) and max(rel.values()) <= ZOO_RTOL[name]:
+                raise AssertionError(f"{name}: a TF32 forward passes the float32 gate")
         f32[name] = got
         del model
     for name, model in _zoo_models(torch.bfloat16).items():
@@ -2211,13 +2265,30 @@ def zoo_forwards(dev, card):
               f"{({k: float(f'{d:.3g}') for k, d in dist.items()})} on {card}")
 
 
+def _msmformer_criterion(out, pool, scene):
+    """The msmformer recipe's set loss on the CPU, on forward outputs `out`
+    (on the host) against scene `scene` of the staged CPU pool, as the
+    recipe's step builds its targets: {"total", each part} as floats."""
+    import train_zoo_torch as zoo
+    from quber_tpu_torch.models.msmformer import msmformer_set_loss
+
+    labels = pool["labels"][scene]
+    gt = (labels[::4, ::4][None] == 1 + torch.arange(zoo.SLOTS)[:, None, None]).float()
+    parts = msmformer_set_loss(out, gt[None], pool["valid"][scene][None])
+    return {"total": float(sum(parts.values())), **{k: float(v) for k, v in parts.items()}}
+
+
 def zoo_training(dev, card, work):
     """Phase 23(b): train_zoo_torch's msmformer and uoaisnet steps at
     480x640 on two rendered scenes, card against CPU from the same init in
     float32 (MSMFormer's recipe runs bfloat16, whose roundings differ
     between the card's and the CPU's kernels by ~1e-3 of the loss); then the
     recipes' own steps on the card alone, timed, the weights saved as
-    train_zoo_torch saves them. Returns {model: checkpoint directory}."""
+    train_zoo_torch saves them. Returns {model: the checkpoint directory
+    that 23(c) evaluates} (MSMFormer's with its objectness bias raised by
+    ZOO_OBJECTNESS_SHIFT and its per-pixel largest mask logit's median
+    moved to 0, UOAIS-Net's with its visible masks' median logit moved to
+    0)."""
     import train_zoo_torch as zoo
     from quber_tpu_torch.models.from_jax import state_dict_to_jax
     from quber_tpu_torch.train.checkpoint import save_params
@@ -2234,6 +2305,10 @@ def zoo_training(dev, card, work):
             model, optimizer = make_model(7, UCN_LR, device, **f32)
             runs[key] = {"model": model, "opt": optimizer, "step": make_step(model, optimizer),
                          "pool": zoo.stage(scenes, device), "losses": [], "s": 0.0}
+        card_out, criterion = {}, []
+        if name == "msmformer":  # the card's forward outputs of each step, on the host
+            runs["card"]["model"].register_forward_hook(lambda mod, args, out: card_out.update(
+                {k: v.detach().cpu() for k, v in out.items()}))
         for i in range(ZOO_CPU_STEPS):
             if i:  # each later step from the CPU's own state, as the CPU tests take it
                 runs["card"]["model"].load_state_dict(runs["cpu"]["model"].state_dict())
@@ -2248,6 +2323,9 @@ def zoo_training(dev, card, work):
                     run["grads"] = {n: p.grad.detach().cpu().double()
                                     for n, p in run["model"].named_parameters()
                                     if p.grad is not None}
+            if card_out:
+                criterion.append(_msmformer_criterion(card_out, runs["cpu"]["pool"],
+                                                      i % ZOO_POOL))
         loss_gpu, grad_gpu = runs["card"]["losses"], runs["card"]["grads"]
         loss_cpu, grad_cpu, cpu_s = runs["cpu"]["losses"], runs["cpu"]["grads"], runs["cpu"]["s"]
         pool = runs["card"]["pool"]
@@ -2276,6 +2354,17 @@ def zoo_training(dev, card, work):
             gated = [k for k in b if not (i and name == "msmformer" and k in ("total", "loss_mask"))]
             if not all(abs(a[k] - b[k]) <= CPU_LOSS_RTOL * abs(b[k]) + 1e-6 for k in gated):
                 raise AssertionError(f"{name}: the card and the CPU disagree on a loss")
+        if criterion:
+            # the card's criterion, its mask loss included, on the card's own
+            # forward against the CPU's criterion on the same outputs
+            gaps = [{k: float(f"{abs(a[k] - b[k]) / max(abs(b[k]), 1e-12):.3g}") for k in b}
+                    for a, b in zip(loss_gpu, criterion)]
+            print(f"{name}: the CPU's criterion on the card's forward outputs, total "
+                  f"{[b['total'] for b in criterion]}, relative gaps of the card's losses by "
+                  f"part {gaps} (rtol {CPU_LOSS_RTOL})")
+            if not all(abs(a[k] - b[k]) <= CPU_LOSS_RTOL * abs(b[k]) + 1e-6
+                       for a, b in zip(loss_gpu, criterion) for k in b):
+                raise AssertionError(f"{name}: the card's criterion disagrees with the CPU's")
         if cos[0] < GRAD_COSINE:
             raise AssertionError(f"{name}: the card and the CPU disagree on a gradient")
         model, optimizer = make_model(7, UCN_LR, dev)
@@ -2297,6 +2386,31 @@ def zoo_training(dev, card, work):
             raise AssertionError(f"{name}: a loss on the card is not finite")
         ckpts[name] = os.path.join(work, name, "ckpt")
         save_params(ckpts[name], state_dict_to_jax(model), step=ZOO_CARD_STEPS)
+        if name == "msmformer":  # the copy that 23(c) evaluates: every query accepted,
+            # and the mask logits moved by one constant (channel 0 of the mask
+            # features made 1, of every mask embedding the shift): half the
+            # pixels of a training scene above 0.5, whatever the 40 steps left
+            with torch.no_grad():
+                model.objectness.bias += ZOO_OBJECTNESS_SHIFT
+                model.mask_features.norm.weight[0], model.mask_features.norm.bias[0] = 0.0, 1.0
+                model.mask_embed.weight[0], model.mask_embed.bias[0] = 0.0, 0.0
+                out = model(pool["rgb"][0][None], pool["xyz"][0][None])
+                shift = -float(out["mask_logits"][0].amax(0).median())
+                model.mask_embed.bias[0] = shift
+            print(f"msmformer: the evaluated copy's mask logits moved by {shift:.4f}, the "
+                  f"negated median of a training scene's per-pixel largest")
+            ckpts[name] = os.path.join(work, name, "eval_ckpt")
+            save_params(ckpts[name], state_dict_to_jax(model), step=ZOO_CARD_STEPS)
+        if name == "uoaisnet":  # the copy that 23(c) evaluates: masks that cover pixels
+            with torch.no_grad():
+                out = model(pool["rgb"][0][None], pool["depth"][0][None])
+                shift = -float(out["visible_masks"][out["valid"]].median())
+                model.visible_head.predictor.bias += shift
+            print(f"uoaisnet: the evaluated copy's visible-mask bias raised by {shift:.4f}, the "
+                  f"negated median logit of its {int(out['valid'].sum())} detections on a "
+                  f"training scene")
+            ckpts[name] = os.path.join(work, name, "eval_ckpt")
+            save_params(ckpts[name], state_dict_to_jax(model), step=ZOO_CARD_STEPS)
         del model, optimizer, step, pool
         torch.cuda.empty_cache()
     return ckpts
@@ -2304,7 +2418,7 @@ def zoo_training(dev, card, work):
 
 def _wrapper_parity(label, make, keys, card):
     """A base-model wrapper on the card against the CPU on `keys` (frames):
-    the same count and >= 99.5% of the labels."""
+    the same count and >= 99.5% of the labels, some mask with a pixel."""
     from quber_tpu_torch.evaluation.harness import masks_to_label_image
 
     results = {}
@@ -2315,17 +2429,21 @@ def _wrapper_parity(label, make, keys, card):
     for i, (g, c) in enumerate(zip(results["cuda"], results["cpu"])):
         agree = _label_agreement(masks_to_label_image(g[0], np.zeros((H, W), np.int32)),
                                  masks_to_label_image(c[0], np.zeros((H, W), np.int32)))
-        print(f"{label} frame {i + 1}: instances card {len(g[0])} CPU {len(c[0])}, label "
+        print(f"{label} frame {i + 1}: instances card {len(g[0])} CPU {len(c[0])} (with a "
+              f"pixel {_segmented(g[0])} / {_segmented(c[0])}), label "
               f"agreement {agree:.6f} (need >= {PANOPTIC_AGREEMENT}), card {g[2]:.3f} s, CPU "
               f"{c[2]:.3f} s on {card}")
         if len(g[0]) != len(c[0]) or agree < PANOPTIC_AGREEMENT:
             raise AssertionError(f"{label}: the card and the CPU disagree")
+    if not sum(_segmented(g[0]) for g in results["cuda"]):
+        raise AssertionError(f"{label}: the wrapper segmented no pixel")
 
 
 def zoo_rest(frames, dev, card):
     """Phase 23(d): msmformer-zoomin on two frames and msmformer-pretrained
-    and uoaisnet-pretrained on one, each at its wrapper's random init, card
-    against CPU; the ms a frame of nms_fixed at 1000 boxes."""
+    and uoaisnet-pretrained on one, at random inits with the twins' class
+    and mask biases moved, card against CPU; the ms a frame of nms_fixed at
+    1000 boxes."""
     from quber_tpu_torch.models.msmformer import MSMFormerBaseModel
     from quber_tpu_torch.models.msmformer_pretrained import PretrainedMSMFormerBaseModel
     from quber_tpu_torch.models.uoais_net_pretrained import UOAISNetPretrainedBaseModel
@@ -2340,16 +2458,40 @@ def zoo_rest(frames, dev, card):
         # these frames, with its float32 model: at a random init the queries'
         # bfloat16 scores lie within a rounding of each other, and the card's
         # and the CPU's bfloat16 kernels round in other places
+        # and the CPU's bfloat16 kernels round in other places. The crop
+        # stage is a copy with every query accepted: at this init no query
+        # of a crop passes 0.5 and the refined masks would be empty
         base = MSMFormerBaseModel(zoom_in=True, device=device)
         set_compute_dtype(base.model, torch.float32)
         base.model.dtype = torch.float32
+        base.model_crop = copy.deepcopy(base.model)
+        with torch.no_grad():
+            base.model_crop.objectness.bias += ZOO_OBJECTNESS_SHIFT
         return base
 
-    _wrapper_parity("msmformer-zoomin, seed-0 init, float32", zoomin, keys[:ZOOM_FRAMES], card)
-    _wrapper_parity("msmformer-pretrained, random init", lambda d: PretrainedMSMFormerBaseModel(
-        device=d), keys[:1], card)
-    _wrapper_parity("uoaisnet-pretrained, random init", lambda d: UOAISNetPretrainedBaseModel(
-        device=d), keys[:1], card)
+    _wrapper_parity("msmformer-zoomin, seed-0 init, float32, crop stage every query",
+                    zoomin, keys[:ZOOM_FRAMES], card)
+    # the twins' class and mask biases moved as the CPU tests move them, so
+    # that the wrappers keep detections; UOAIS-Net from torch's default init
+    # (seeded), whose box deltas leave boxes that are not empty, as the
+    # synthesised reference state of tests/test_uoais_pretrained.py does
+    msm = PretrainedMSMFormerBaseModel(device="cpu").model
+    with torch.no_grad():
+        msm.predictor.class_embed.bias[1] += MSM_CLASS_SHIFT
+    msm = msm.state_dict()
+    uoais = UOAISNetPretrainedBaseModel(device="cpu").model
+    torch.manual_seed(ZOO_SEED)
+    with torch.no_grad():
+        for mod in uoais.modules():
+            if isinstance(mod, (torch.nn.Conv2d, torch.nn.Linear)):
+                mod.reset_parameters()
+        uoais.cls_score.bias[0] += UOAIS_CLASS_SHIFT
+        uoais.visible_mask_head.predictor.conv.bias[0] += UOAIS_MASK_SHIFT
+    uoais = uoais.state_dict()
+    _wrapper_parity("msmformer-pretrained, random init, class bias moved",
+                    lambda d: PretrainedMSMFormerBaseModel(params=msm, device=d), keys[:1], card)
+    _wrapper_parity("uoaisnet-pretrained, seeded init, class and mask biases moved",
+                    lambda d: UOAISNetPretrainedBaseModel(params=uoais, device=d), keys[:1], card)
     g = torch.Generator().manual_seed(ZOO_SEED)
     xy = torch.rand(NMS_BOXES, 2, generator=g) * torch.tensor([W, H])
     wh = torch.rand(NMS_BOXES, 2, generator=g) * 120 + 8
@@ -2377,12 +2519,17 @@ def zoo_phase(root, params, frames, dev, card, work):
     torch.cuda.empty_cache()
     ckpts = zoo_training(dev, card, work)
     launches = {}
-    for base, env in (("msmformer", "QUBER_MSMFORMER_NATIVE_CKPT"),
-                      ("uoaisnet", "QUBER_UOAISNET_CKPT")):
+    os.environ["QUBER_UOAISNET_THRESH"] = ZOO_UOAISNET_THRESH
+    for base, env, label in (
+            ("msmformer", "QUBER_MSMFORMER_NATIVE_CKPT",
+             f"msmformer (phase 23(b)'s weights, objectness bias +{ZOO_OBJECTNESS_SHIFT})"),
+            ("uoaisnet", "QUBER_UOAISNET_CKPT",
+             f"uoaisnet (phase 23(b)'s weights, score threshold {ZOO_UOAISNET_THRESH})")):
         launches[base] = base_evaluation(base, env, ckpts[base], root, params, frames, card,
-                                         f"{base} (phase 23(b)'s weights)")
+                                         label)
         base_device_seconds(base, frames, card)
         torch.cuda.empty_cache()
+    del os.environ["QUBER_UOAISNET_THRESH"]
     zoo_rest(frames, dev, card)
     return launches
 

@@ -55,7 +55,8 @@ class Conv2d(nn.Conv2d):
 
 def flax_softmax(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     """jax.nn.softmax in the input's type, op by op: exp(x - max) over its
-    sum (in bfloat16 each step rounds, as XLA's do)."""
+    sum (in bfloat16 each step rounds, as XLA's do, jitted or not; torch's
+    softmax rounds once)."""
     u = torch.exp(x - x.amax(dim=dim, keepdim=True).detach())
     return u / u.sum(dim=dim, keepdim=True)
 

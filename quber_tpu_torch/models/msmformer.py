@@ -48,7 +48,8 @@ from quber_tpu_torch.ops.meanshift import l2_normalize, label_counts
 def gelu(x):
     """flax nn.gelu: the tanh approximation, op by op in the input's type
     with its constants in that type too (JAX casts them so); in bfloat16
-    each step rounds, as XLA's do."""
+    each step rounds, as XLA's do, jitted or not (torch's F.gelu rounds
+    once)."""
     c = {v: torch.tensor(v, dtype=x.dtype, device=x.device)
          for v in (math.sqrt(2 / math.pi), 0.044715, 0.5, 1.0)}
     inner = c[math.sqrt(2 / math.pi)] * (x + c[0.044715] * x ** 3)

@@ -40,6 +40,7 @@ H = W = 64
 LR = 1e-4
 SEED = 7
 LOSS_RTOL = 1e-3
+GRAD_SHARE = 0.15
 BF16_LOSS_RTOL = 2e-3
 
 
@@ -70,7 +71,7 @@ def _jax_recipe(dtype):
 
         (loss, parts), grads = jax.value_and_grad(loss_fn, has_aux=True)(v)
         updates, opt_state = tx.update(grads, opt_state, v)
-        return optax.apply_updates(v, updates), opt_state, loss, parts
+        return optax.apply_updates(v, updates), opt_state, loss, parts, grads
 
     return variables, tx.init(variables), jstep, model
 
@@ -104,15 +105,16 @@ def _load(model, optimizer, v, opt_state=None):
 
 def _jax_steps(pool, dtype, n):
     """n steps of the JAX recipe on scenes 1, 0: ([(weights, Adam state)
-    before each step and after the last], [(loss, parts) of each], the
-    forward applied by itself)."""
+    before each step and after the last], [(loss, parts, gradients) of
+    each], the forward applied by itself)."""
     variables, opt_state, jstep, model = _jax_recipe(dtype)
     states, out = [(variables, opt_state)], []
     for scene in (1, 0)[:n]:
-        v, o, loss, parts = jstep(*states[-1], *(pool[k][scene] for k in
+        v, o, loss, parts, grads = jstep(*states[-1], *(pool[k][scene] for k in
                                                  ("rgb", "xyz", "labels", "valid")))
         states.append((v, o))
-        out.append((float(loss), {k: float(x) for k, x in parts.items()}))
+        out.append((float(loss), {k: float(x) for k, x in parts.items()},
+                    jax.tree.map(np.asarray, dict(grads))))
     return states, out, model
 
 
@@ -125,9 +127,9 @@ def test_two_steps_match_the_jax_recipe_in_float32(pool, jax_float32):
     """The recipe's logic (the ground truth at stride 4, the set loss with
     its matching, Adam over every parameter) in float32.
 
-    Step 1 from the reference's init: the loss rtol 1e-3, and the updated
-    weights within 2.1 learning rates of the reference's (Adam's first update
-    is lr * sign(g)). Step 2 from the reference's own state (its weights and
+    Step 1 from the reference's init: the loss rtol 1e-3, and every
+    parameter's gradient within 15% of the norm of jax.value_and_grad's
+    (tests/test_torch_train.py's rule). Step 2 from the reference's own state (its weights and
     Adam moments): the dice and objectness losses rtol 1e-3, and the mask
     loss of the port's criterion on the reference's own forward equal to the
     reference's. The port's mask loss on its own forward is not compared: at
@@ -142,10 +144,20 @@ def test_two_steps_match_the_jax_recipe_in_float32(pool, jax_float32):
     _load(model, optimizer, states[0][0])
     loss1, _ = step(tpool, 1)
     assert float(loss1) == pytest.approx(want[0][0], rel=LOSS_RTOL)
-    updated = state_dict_from_jax(jax.tree.map(np.asarray, dict(states[1][0])))
+    # each gradient (left by the step) within GRAD_SHARE of the norm of the
+    # reference's; one below a thousandth of the largest (a conv bias ahead
+    # of a GroupNorm: zero, as float noise) only held below that
+    grads = state_dict_from_jax(want[0][2])
+    noise = 1e-3 * max(float(g.norm()) for g in grads.values())
+    compared = 0
     for name, p in model.named_parameters():
-        np.testing.assert_allclose(p.detach().numpy(), updated[name].numpy(), rtol=0,
-                                   atol=2.1 * LR, err_msg=name)
+        g = grads[name].double()
+        if float(g.norm()) <= noise:
+            assert float(p.grad.norm()) <= noise, name
+            continue
+        assert float((p.grad.double() - g).norm()) <= GRAD_SHARE * float(g.norm()), name
+        compared += 1
+    assert compared > 200, compared
 
     _load(model, optimizer, *states[1])
     _, parts2 = step(tpool, 0)

@@ -5,10 +5,11 @@ widths) on 64x64 scenes of make_scenes.
 Two steps from the JAX package's init carried across with from_jax, the
 second from the reference's own state after the first (its parameters, the
 FrozenBN tensors among them, and its Adam moments). Tolerances: the total
-loss and each part rtol 1e-3 (abs 1e-6 for a part that is zero), every
-parameter after the first step within 2.1 learning rates of the
-reference's (Adam's first update is lr * sign(g)), the FrozenBN tensors
-moved as the reference moves them. Then the CLI: two CPU steps write a
+loss and each part rtol 1e-3 (abs 1e-6 for a part that is zero); the first
+step's gradient of every parameter, the FrozenBN tensors included, within
+15% of the norm of jax.value_and_grad's (tests/test_torch_train.py's rule),
+a gradient below a thousandth of the largest held to that bound alone.
+Then the CLI: two CPU steps write a
 checkpoint directory, which build_base_model reads through
 $QUBER_UOAISNET_CKPT, and an int8 archive, which the JAX package's
 UOAIS-Net applies.
@@ -39,6 +40,7 @@ H = W = 64
 LR = 1e-4
 SEED = 7
 LOSS_RTOL = 1e-3
+GRAD_SHARE = 0.15
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -77,7 +79,7 @@ def test_two_steps_match_the_jax_recipe():
 
         (loss, parts), grads = jax.value_and_grad(loss_fn, has_aux=True)(params)
         updates, opt_state = tx.update(grads, opt_state, params)
-        return optax.apply_updates(params, updates), opt_state, loss, parts
+        return optax.apply_updates(params, updates), opt_state, loss, parts, grads
 
     tmodel, optimizer = train_zoo_torch.make_uoaisnet(SEED, LR, "cpu")
     frozen = [n for n, _ in tmodel.named_parameters() if ".norm." in n]
@@ -92,7 +94,7 @@ def test_two_steps_match_the_jax_recipe():
             load_optax_adam_state(optimizer, tmodel, jax.tree.map(np.asarray, adam.mu),
                                   jax.tree.map(np.asarray, adam.nu), int(adam.count))
         s = scenes[scene]
-        new_params, opt_state, loss, parts = jstep(
+        new_params, opt_state, loss, parts, grads = jstep(
             params, opt_state, *(s[k] for k in ("rgb", "depth", "boxes", "vis", "amo", "valid")))
         got_loss, got_parts = step(tpool, scene)
         assert float(got_loss) == pytest.approx(float(loss), rel=LOSS_RTOL), i
@@ -100,11 +102,25 @@ def test_two_steps_match_the_jax_recipe():
             assert float(got_parts[k]) == pytest.approx(float(parts[k]), rel=LOSS_RTOL,
                                                         abs=1e-6), (i, k)
         if i == 0:
-            want = state_dict_from_jax({"params": jax.tree.map(np.asarray, new_params)})
-            for name, p in tmodel.named_parameters():
-                np.testing.assert_allclose(p.detach().numpy(), want[name].numpy(), rtol=0,
-                                           atol=2.1 * LR, err_msg=name)
+            _check_gradients(tmodel, state_dict_from_jax(
+                {"params": jax.tree.map(np.asarray, grads)}), frozen)
         params = new_params
+
+
+def _check_gradients(model, want, frozen):
+    """Each parameter's gradient (left by the step) within GRAD_SHARE of the
+    norm of the reference's; one below a thousandth of the largest only
+    held below that."""
+    noise = 1e-3 * max(float(g.norm()) for g in want.values())
+    compared = []
+    for name, p in model.named_parameters():
+        g = want[name].double()
+        if float(g.norm()) <= noise:
+            assert float(p.grad.norm()) <= noise, name
+            continue
+        assert float((p.grad.double() - g).norm()) <= GRAD_SHARE * float(g.norm()), name
+        compared.append(name)
+    assert len(compared) > 300 and len(set(compared) & set(frozen)) > 100, len(compared)
 
 
 def test_train_zoo_torch_cli(tmp_path, capsys, monkeypatch):
