@@ -178,8 +178,31 @@ Phases (any failure ends the run with a non-zero exit code):
      mask biases moved so that they segment, card against CPU (count equal,
      >= 99.5% of the labels, some mask with a pixel), and nms_fixed's ms a
      frame at 1000 boxes;
- 24. print a JSON line of the kernels' numbers (each row with the launches
-     of phases 20-23 beside those of earlier paths), the frame time,
+ 24. UOIS-Net-3D and the CascadePSP and RICE refiner baselines: (a) the
+     native DSN and RRN, the released architectures' DSN and RRN (width
+     64), PSPNetUOAIS and the NodeScorer at the wrappers' shapes from one
+     seeded init, float32 (TF32 off) on the card against the CPU (every
+     output within ZOO2_RTOL of max |CPU|), then the UOIS-Net-3D nets in
+     bfloat16 on the card (finite, the distance to float32 printed); (b)
+     train_zoo_torch's uoisnet3d, cascadepsp and rice steps on two rendered
+     scenes (cascadepsp on their crops), card against CPU from the same
+     init with the random draws handed over (the second step from the
+     CPU's state; losses rtol 1e-3, first gradients cosine >= 0.999), then
+     40 of each recipe's own steps on the card (ms a step, peak memory), the
+     weights saved as train_zoo_torch saves them; (c) phase 14's frames
+     through run_eval with base uoisnet3d (those weights, the foreground and
+     refinement biases moved if they segment nothing) and the flagship int8
+     refiner per image and streamed at B = 8 (launches added to each kernel
+     row as zoo_eval["uoisnet3d"]), the frames through perturbed-gt ->
+     cascadepsp and perturbed-gt -> rice (greedy) with (b)'s weights, card
+     against CPU on ZOO2_CPU_FRAMES frames of each (the count equal, >=
+     99.5% of the labels; uoisnet3d with its float32 models), rice CEM on
+     two frames (the CPU's Gumbel noise handed to the card), each wrapper's
+     device seconds a frame; (d) uoisnet3d-pretrained at its random init,
+     its centre head zeroed and its object class taking every pixel, float32
+     card against CPU on one frame;
+ 25. print a JSON line of the kernels' numbers (each row with the launches
+     of phases 20-24 beside those of earlier paths), the frame time,
      and as the last line {"ok": true, "device": {...}}.
 Needs CUDA; it has no CPU mode.
 """
@@ -295,6 +318,17 @@ ZOO_UOAISNET_THRESH = "0"
 # tests/test_torch_zoo_base_pretrained.py moves them, so that they segment
 MSM_CLASS_SHIFT = 4.0
 UOAIS_CLASS_SHIFT, UOAIS_MASK_SHIFT = 4.0, 2.0
+ZOO2_SEED = 11  # phase 24's inits and scenes
+# phase 24(a)'s float32 forwards, card against CPU: the GroupNorm nets as
+# phase 20's; PSPNetUOAIS's BatchNorms are the identity at init, so its
+# trunk runs unnormalised three times over, as UOAIS-Net's did in phase 23
+ZOO2_RTOL = {"uoisnet3d DSN": ABLATION_RTOL, "uoisnet3d RRN": ABLATION_RTOL,
+             "released DSN": ABLATION_RTOL, "released RRN": ABLATION_RTOL,
+             "PSPNetUOAIS": 1e-3, "NodeScorer": ABLATION_RTOL}
+ZOO2_CROPS = 8  # cascadepsp's pool in 24(b): 4 scenes' whole-frame and ROI crops
+ZOO2_CPU_CROP = 112  # the crop side of 24(b)'s cascadepsp steps against the CPU
+ZOO2_CPU_FRAMES = 2  # 24(c)'s refiners card against CPU
+ZOO2_BASE_CPU_FRAMES = 1  # 24(c)'s uoisnet3d and 24(d)'s twin card against CPU
 # H100 SXM data sheet: HBM3 rate and fp32 rate outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
@@ -2416,25 +2450,32 @@ def zoo_training(dev, card, work):
     return ckpts
 
 
+def _mask_parity(label, pairs, card, seconds=None):
+    """(card masks, CPU masks) pairs of frames: the same count and >= 99.5%
+    of the labels each; `seconds` (card, CPU) pairs are printed beside."""
+    from quber_tpu_torch.evaluation.harness import masks_to_label_image
+
+    for i, (g, c) in enumerate(pairs):
+        agree = _label_agreement(masks_to_label_image(g, np.zeros((H, W), np.int32)),
+                                 masks_to_label_image(c, np.zeros((H, W), np.int32)))
+        times = f", card {seconds[i][0]:.3f} s, CPU {seconds[i][1]:.3f} s" if seconds else ""
+        print(f"{label} frame {i + 1}: masks card {len(g)} CPU {len(c)} (with a pixel "
+              f"{_segmented(g)} / {_segmented(c)}), label agreement {agree:.6f} (need >= "
+              f"{PANOPTIC_AGREEMENT}){times} on {card}")
+        if len(g) != len(c) or agree < PANOPTIC_AGREEMENT:
+            raise AssertionError(f"{label}: the card and the CPU disagree")
+
+
 def _wrapper_parity(label, make, keys, card):
     """A base-model wrapper on the card against the CPU on `keys` (frames):
     the same count and >= 99.5% of the labels, some mask with a pixel."""
-    from quber_tpu_torch.evaluation.harness import masks_to_label_image
-
     results = {}
     for device in ("cuda", "cpu"):
         base = make(device)
         results[device] = [base.predict(*key) for key in keys]
         del base
-    for i, (g, c) in enumerate(zip(results["cuda"], results["cpu"])):
-        agree = _label_agreement(masks_to_label_image(g[0], np.zeros((H, W), np.int32)),
-                                 masks_to_label_image(c[0], np.zeros((H, W), np.int32)))
-        print(f"{label} frame {i + 1}: instances card {len(g[0])} CPU {len(c[0])} (with a "
-              f"pixel {_segmented(g[0])} / {_segmented(c[0])}), label "
-              f"agreement {agree:.6f} (need >= {PANOPTIC_AGREEMENT}), card {g[2]:.3f} s, CPU "
-              f"{c[2]:.3f} s on {card}")
-        if len(g[0]) != len(c[0]) or agree < PANOPTIC_AGREEMENT:
-            raise AssertionError(f"{label}: the card and the CPU disagree")
+    _mask_parity(label, [(g[0], c[0]) for g, c in zip(results["cuda"], results["cpu"])], card,
+                 [(g[2], c[2]) for g, c in zip(results["cuda"], results["cpu"])])
     if not sum(_segmented(g[0]) for g in results["cuda"]):
         raise AssertionError(f"{label}: the wrapper segmented no pixel")
 
@@ -2534,6 +2575,400 @@ def zoo_phase(root, params, frames, dev, card, work):
     return launches
 
 
+def _zoo2_inputs():
+    """Phase 24(a)'s models (float32, from ZOO2_SEED, eval mode, on the CPU)
+    and their inputs at the wrappers' shapes: {name: (model, inputs)}."""
+    import train_zoo_torch as zoo
+    from quber_tpu_torch.models.cascadepsp import PSPNetUOAIS
+    from quber_tpu_torch.models.rice import NodeScorer, hypothesis_node_crops
+    from quber_tpu_torch.models.uois_net import DepthSeedingNetwork, RegionRefinementNetwork
+    from quber_tpu_torch.models.uois_net_pretrained import PretrainedDSN, PretrainedRRN
+    from quber_tpu_torch.ops.boxes import roi_align, roi_align_each
+    from quber_tpu_torch.ops.zoom import instance_boxes_from_labels
+
+    lab = zoo.stage(zoo.make_labeled_scenes(1, H, W, ZOO2_SEED, (250, 1500)), "cpu")
+    rgb, xyz, labels = lab["rgb"][0], lab["xyz"][0], lab["labels"][0]
+    mask = (labels == 1).float()
+    boxes, _ = instance_boxes_from_labels(labels, 2, pad_ratio=0.25)
+    crops = torch.cat([roi_align(rgb, boxes, out_size=224),
+                       (roi_align_each((labels[None] == torch.tensor([[[1]], [[2]]])).float(),
+                                       boxes, 224) > 0.5).float()[:, None]], dim=1)
+    psp = zoo.stage(zoo.make_refine_crops(2, H, W, ZOO2_SEED, (250, 1500)), "cpu")
+    rice = zoo.stage(zoo.make_rice_scenes(1, H, W, ZOO2_SEED, (250, 1500)), "cpu")
+    nodes, _ = hypothesis_node_crops(rice["image6"][0], rice["good"][0] > 0, rice["gvalid"][0])
+    out = {
+        "uoisnet3d DSN": (DepthSeedingNetwork(), (xyz[None],)),
+        "uoisnet3d RRN": (RegionRefinementNetwork(), (torch.cat([rgb, mask[None]])[None],)),
+        "released DSN": (PretrainedDSN(), (xyz[None],)),
+        "released RRN": (PretrainedRRN(), (crops,)),
+        "PSPNetUOAIS": (PSPNetUOAIS(), (psp["rgbd"][:, :3], psp["rgbd"][:, 3:4],
+                                        (psp["seg"][:, None] - 0.5) / 0.5)),
+        "NodeScorer": (NodeScorer(), (nodes,)),
+    }
+    for model, _ in out.values():
+        model.reset_parameters(torch.Generator().manual_seed(ZOO2_SEED))
+        model.eval()
+    return out
+
+
+def _as_dict(out):
+    if isinstance(out, dict):
+        return out
+    return {f"out{i}": o for i, o in enumerate(out if isinstance(out, tuple) else (out,))}
+
+
+def zoo2_forwards(dev, card):
+    """Phase 24(a): each model of the slice at its wrapper's shapes, float32
+    (TF32 off) on the card against the CPU, then the UOIS-Net-3D nets in
+    bfloat16 on the card (finite, the distance to float32 printed)."""
+    from quber_tpu_torch.models.layers import set_compute_dtype
+    from quber_tpu_torch.models.uois_net_pretrained import set_dtype
+
+    for name, (model, args) in _zoo2_inputs().items():
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            cpu = _as_dict(model(*args))
+            cpu_s = time.perf_counter() - t0
+            model.to(dev)
+            got = _as_dict(model(*(a.to(dev) for a in args)))
+        torch.cuda.synchronize()
+        rel, _ = _forward_gaps(got, cpu)
+        finite = all(bool(torch.isfinite(v).all()) for v in got.values())
+        shapes = [tuple(a.shape) for a in args]
+        print(f"{name} {shapes} float32, card against CPU: max |card - CPU| over max |CPU| "
+              f"{({k: float(f'{r:.3g}') for k, r in rel.items()})} (tolerance "
+              f"{ZOO2_RTOL[name]}); CPU forward {cpu_s:.2f} s")
+        if not finite or max(rel.values()) > ZOO2_RTOL[name]:
+            raise AssertionError(f"{name}: the card and the CPU disagree on the forward")
+        if name.startswith(("uoisnet3d", "released")):
+            (set_compute_dtype if name.startswith("uoisnet3d") else set_dtype)(model, torch.bfloat16)
+            with torch.no_grad():
+                bf16 = _as_dict(model(*(a.to(dev) for a in args)))
+            torch.cuda.synchronize()
+            if not all(bool(torch.isfinite(v).all()) for v in bf16.values()):
+                raise AssertionError(f"{name}: a bfloat16 output on the card is not finite")
+            dist = {k: float(f"{float((v.float() - got[k]).abs().mean() / got[k].abs().mean()):.3g}")
+                    for k, v in bf16.items()}
+            print(f"{name} bfloat16 on the card: finite; mean |bf16 - float32| over mean "
+                  f"|float32| {dist} on {card}")
+        del model
+        torch.cuda.empty_cache()
+
+
+def _zoo2_recipe(name, seed, device):
+    """(model, optimizer, step) of train_zoo_torch's recipe `name`, its own
+    draws from `seed` (the command line's)."""
+    import train_zoo_torch as zoo
+
+    _, make_model, make_step = zoo.RECIPES[name]
+    model, optimizer = make_model(seed, UCN_LR, device)
+    opts = {"uoisnet3d": {"generator": torch.Generator(device).manual_seed(seed)},
+            "cascadepsp": {"size": ZOO2_CROPS, "seed": seed}}.get(name, {})
+    return model, optimizer, make_step(model, optimizer, **opts)
+
+
+def zoo2_training(dev, card, work):
+    """Phase 24(b): train_zoo_torch's uoisnet3d, cascadepsp and rice steps,
+    card against CPU from the same init with the draws handed over (the
+    second step from the CPU's state), then 40 of each recipe's own steps
+    on the card, timed, the weights saved as train_zoo_torch saves them.
+    Returns {recipe: {checkpoint directory name: path}}."""
+    import train_zoo_torch as zoo
+    from quber_tpu_torch.models.from_jax import state_dict_to_jax
+    from quber_tpu_torch.train.checkpoint import save_params
+
+    ckpts = {}
+    for name in ("uoisnet3d", "cascadepsp", "rice"):
+        make_pool = zoo.RECIPES[name][0]
+        n_pool = ZOO2_CROPS if name == "cascadepsp" else ZOO_POOL
+        t0 = time.perf_counter()
+        scenes = make_pool(n_pool, H, W, 7, (250, 1500))
+        # cascadepsp's steps against the CPU on crops of half the side (a CPU
+        # step at 224x224 takes ~15 s); the timed steps below take the recipe's
+        small = zoo.make_refine_crops(n_pool, H, W, 7, (250, 1500), crop=ZOO2_CPU_CROP) \
+            if name == "cascadepsp" else scenes
+        render_s = time.perf_counter() - t0
+        runs = {}
+        for key, device in (("card", dev), ("cpu", torch.device("cpu"))):
+            model, optimizer, step = _zoo2_recipe(name, 7, device)
+            runs[key] = {"model": model, "opt": optimizer, "step": step,
+                         "pool": zoo.stage(small, device), "losses": [], "s": 0.0}
+        draw_g = torch.Generator().manual_seed(ZOO2_SEED)
+        batch_rng = np.random.default_rng(ZOO2_SEED)
+        for i in range(ZOO_CPU_STEPS):
+            if i:
+                runs["card"]["model"].load_state_dict(runs["cpu"]["model"].state_dict())
+                runs["card"]["opt"].load_state_dict(runs["cpu"]["opt"].state_dict())
+            scene = i % n_pool
+            extra = {}
+            if name == "uoisnet3d":  # one set of draws, on the CPU, for both
+                pool = runs["cpu"]["pool"]
+                extra = {"draws": zoo.draw_uoisnet3d(pool["labels"][scene], pool["valid"][scene],
+                                                     draw_g)}
+            elif name == "cascadepsp":
+                extra = {"batch": batch_rng.integers(0, n_pool, zoo.CASCADEPSP_BATCH - 1).tolist()
+                         + [scene]}
+            for key, run in runs.items():
+                kw = dict(extra)
+                if "draws" in kw and key == "card":
+                    kw["draws"] = {k: v.to(dev) if torch.is_tensor(v) else v
+                                   for k, v in kw["draws"].items()}
+                t1 = time.perf_counter()
+                loss, parts = run["step"](run["pool"], scene, **kw)
+                run["losses"].append({"total": float(loss),
+                                      **{k: float(v) for k, v in parts.items()}})
+                run["s"] += time.perf_counter() - t1
+                if i == 0:
+                    run["grads"] = {n: p.grad.detach().cpu().double()
+                                    for n, p in run["model"].named_parameters()
+                                    if p.grad is not None}
+        loss_gpu, grad_gpu = runs["card"]["losses"], runs["card"]["grads"]
+        loss_cpu, grad_cpu, cpu_s = runs["cpu"]["losses"], runs["cpu"]["grads"], runs["cpu"]["s"]
+        del runs
+        pool = zoo.stage(scenes, dev)
+        norm = {n: float(g.norm()) for n, g in grad_cpu.items()}
+        top = max(norm.values())
+        cos = min((float(torch.nn.functional.cosine_similarity(
+            g.flatten(), grad_gpu[n].flatten(), dim=0)), n)
+            for n, g in grad_cpu.items() if norm[n] > ZERO_GRAD_SHARE * top)
+        gaps = [{k: float(f"{abs(a[k] - b[k]) / max(abs(b[k]), 1e-12):.3g}") for k in b}
+                for a, b in zip(loss_gpu, loss_cpu)]
+        shape = (f"{ZOO2_CPU_CROP}x{ZOO2_CPU_CROP} crops, batch {zoo.CASCADEPSP_BATCH}"
+                 if name == "cascadepsp" else f"{H}x{W} scenes")
+        print(f"{name}, {ZOO_CPU_STEPS} train_zoo_torch steps on {shape} card against CPU (draws "
+              f"handed over): total losses card {[a['total'] for a in loss_gpu]} cpu "
+              f"{[b['total'] for b in loss_cpu]}, relative gaps by part {gaps} (rtol "
+              f"{CPU_LOSS_RTOL}); first gradient cosine min {cos[0]:.6f} at {cos[1]} (need >= "
+              f"{GRAD_COSINE}); CPU steps {cpu_s:.1f} s; pool made in {render_s:.1f} s")
+        if not all(abs(a[k] - b[k]) <= CPU_LOSS_RTOL * abs(b[k]) + 1e-6
+                   for a, b in zip(loss_gpu, loss_cpu) for k in b):
+            raise AssertionError(f"{name}: the card and the CPU disagree on a loss")
+        if cos[0] < GRAD_COSINE:
+            raise AssertionError(f"{name}: the card and the CPU disagree on a gradient")
+        model, optimizer, step = _zoo2_recipe(name, 7, dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        times = []
+        for i in range(ZOO_CARD_STEPS):
+            t0 = time.perf_counter()
+            loss, _ = step(pool, i % n_pool)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        print(f"{name} train step on the card (float32): {statistics.median(times):.3f} ms median "
+              f"of {ZOO_CARD_STEPS} ({'batch 4, 224x224 crops' if name == 'cascadepsp' else f'one {H}x{W} scene'}), "
+              f"first {times[0]:.1f} ms, loss {float(loss):.4f}, peak {peak:.3f} GiB on {card}")
+        if not np.isfinite(float(loss)):
+            raise AssertionError(f"{name}: a loss on the card is not finite")
+        args = type("Args", (), {"model": name})
+        ckpts[name] = {}
+        for dirname, module in zoo.saved_modules(args, model).items():
+            ckpts[name][dirname] = os.path.join(work, name, dirname)
+            save_params(ckpts[name][dirname], state_dict_to_jax(module), step=ZOO_CARD_STEPS)
+        if name == "uoisnet3d":
+            ckpts[name] = _uoisnet3d_eval_copy(model, pool, ckpts[name], work)
+        if name == "cascadepsp":
+            ckpts[name] = _cascadepsp_eval_copy(model, pool, ckpts[name], work)
+        del model, optimizer, step, pool
+        torch.cuda.empty_cache()
+    return ckpts
+
+
+def _uoisnet3d_eval_copy(model, pool, ckpts, work):
+    """The weights 24(c) evaluates: (b)'s, unless the wrapper (bfloat16, as
+    it runs) keeps no pixel on a training scene; then a copy with the DSN's
+    offset rows zeroed (the votes are the cloud itself), its foreground bias
+    moved by the median margin of the scene's pixels and the RRN's bias by
+    the median refinement logit inside the largest closed mask."""
+    from quber_tpu_torch.models.from_jax import state_dict_to_jax
+    from quber_tpu_torch.models.uois_net import UOISNet3DBaseModel, open_close
+    from quber_tpu_torch.ops.meanshift import cluster_points_euclidean
+    from quber_tpu_torch.train.checkpoint import save_params
+
+    def segments(dsn, rrn):
+        base = UOISNet3DBaseModel(dsn.state_dict(), rrn.state_dict(), device=pool["rgb"].device)
+        refined, n = base.segment(pool["rgb"][0], pool["xyz"][0])
+        return int(n), int(refined.sum())
+
+    n, pixels = segments(model.dsn, model.rrn)
+    print(f"uoisnet3d after {ZOO_CARD_STEPS} steps on a training scene: {n} instances, "
+          f"{pixels} refined pixels")
+    if pixels:
+        return ckpts
+    with torch.no_grad():
+        xyz = pool["xyz"][0]
+        head = model.dsn.unet.head
+        head.weight[2:], head.bias[2:] = 0.0, 0.0  # the votes are the cloud itself
+        fg_logits, _ = model.dsn(xyz[None])
+        margin = fg_logits[0, 1] - fg_logits[0, 0]
+        head.bias[1] -= float(margin.median())
+        fg = (margin > margin.median()).float()
+        labels = cluster_points_euclidean(xyz.permute(1, 2, 0), fg)["labels"]
+        ids = torch.arange(1, 33, device=labels.device)
+        closed = open_close((labels[None] == ids[:, None, None]).float(), 1)
+        slot = int(closed.flatten(1).sum(1).argmax())
+        logit = model.rrn(torch.cat([pool["rgb"][0], closed[slot][None]])[None])[0, 0]
+        model.rrn.unet.head.bias[0] -= float(logit[closed[slot] > 0].median())
+    n, pixels = segments(model.dsn, model.rrn)
+    print(f"uoisnet3d: the evaluated copy's foreground bias and refinement bias moved by the "
+          f"medians of a training scene: {n} instances, {pixels} refined pixels there")
+    out = {}
+    for dirname, module in (("ckpt_dsn", model.dsn), ("ckpt_rrn", model.rrn)):
+        out[dirname] = os.path.join(work, "uoisnet3d_eval", dirname)
+        save_params(out[dirname], state_dict_to_jax(module), step=ZOO_CARD_STEPS)
+    return out
+
+
+def _cascadepsp_eval_copy(model, pool, ckpts, work):
+    """The weights 24(c) evaluates: (b)'s, unless their final prediction on
+    the pool's first crop holds no pixel above 0.5; then a copy with the
+    final bias moved by the median logit there."""
+    from quber_tpu_torch.models.from_jax import state_dict_to_jax
+    from quber_tpu_torch.train.checkpoint import save_params
+
+    with torch.no_grad():
+        rgbd, seg = pool["rgbd"][:1], (pool["seg"][:1, None] - 0.5) / 0.5
+        logit = model(rgbd[:, :3], rgbd[:, 3:4], seg)["out_224"]
+        pixels = int((logit > 0).sum())
+        print(f"cascadepsp after {ZOO_CARD_STEPS} steps: {pixels} pixels above 0.5 on a "
+              f"training crop")
+        if pixels:
+            return ckpts
+        shift = float(logit.median())
+        model.final_21.bias -= shift
+    print(f"cascadepsp: the evaluated copy's final bias moved by {-shift:.4f}, the negated "
+          f"median logit of a training crop")
+    out = {"ckpt": os.path.join(work, "cascadepsp_eval", "ckpt")}
+    save_params(out["ckpt"], state_dict_to_jax(model), step=ZOO_CARD_STEPS)
+    return out
+
+
+class _Replaying:
+    """A zoo refiner for run_eval that reads its frames from `frames` (as
+    phase 14 read them) and records each frame's initial and refined masks
+    and its own seconds."""
+
+    def __init__(self, inner, frames):
+        self.inner, self.frames = inner, frames
+        inner._load = lambda rgb_path, depth_path: frames[rgb_path, depth_path]
+        self.records = []
+
+    def predict(self, rgb_path, depth_path, initial_masks, fg_mask, **kw):
+        out = self.inner.predict(rgb_path, depth_path, initial_masks, fg_mask, **kw)
+        self.records.append(((rgb_path, depth_path), initial_masks, out[0], out[2]))
+        return out
+
+
+def zoo2_refiners(root, frames, ckpts, card):
+    """Phase 24(c)'s refiners: phase 14's frames through perturbed-gt ->
+    cascadepsp and -> rice (greedy), card against CPU on ZOO2_CPU_FRAMES
+    frames, rice CEM on two frames with the CPU's noise handed over."""
+    from quber_tpu_torch.evaluation.harness import run_eval
+    from quber_tpu_torch.models.cascadepsp import CascadePSPRefiner
+    from quber_tpu_torch.models.rice import RICERefiner, draw_cem_noise
+    from quber_tpu_torch.train.checkpoint import load_eval_params
+
+    weights = {"cascadepsp": load_eval_params(ckpts["cascadepsp"]["ckpt"]),
+               "rice": load_eval_params(ckpts["rice"]["ckpt"])}
+    make = {"cascadepsp": lambda d: CascadePSPRefiner(weights["cascadepsp"], device=d),
+            "rice": lambda d: RICERefiner(weights["rice"], search="greedy", device=d)}
+    for name in ("cascadepsp", "rice"):
+        refiner = _Replaying(make[name]("cuda"), frames)
+        t0 = time.perf_counter()
+        res = run_eval(base_model="perturbed-gt", refiner_model=refiner, test_dataset="OSD",
+                       dataset_path=root, device="cuda",
+                       csv_path=os.path.join(os.path.dirname(root), f"eval_{name}", "eval.csv"))
+        wall = time.perf_counter() - t0
+        means = {s: {k: round(res[s][k], 6) for k in ("Objects F-measure", "Boundary F-measure")}
+                 for s in ("initial", "refined")}
+        seconds = [r[3] for r in refiner.records]
+        print(f"perturbed-gt -> {name} ({'greedy, ' if name == 'rice' else ''}phase 24(b)'s "
+              f"weights), {len(seconds)} frames: masks per frame "
+              f"{[len(r[2]) for r in refiner.records]}, means {means}; the wrapper's device "
+              f"seconds a frame median {statistics.median(seconds[1:]):.4f} (frame 1: "
+              f"{seconds[0]:.3f}); pass wall {wall:.2f} s on {card}")
+        if len(seconds) != EVAL_FRAMES:
+            raise AssertionError(f"{name}: run_eval did not refine every frame")
+        cpu = _Replaying(make[name]("cpu"), frames)
+        pairs = []
+        for key, initial, got, _ in refiner.records[:ZOO2_CPU_FRAMES]:
+            pairs.append((got, cpu.predict(*key, initial, None)[0]))
+        _mask_parity(f"perturbed-gt -> {name}, card against CPU", pairs, card)
+        if name == "rice":
+            pairs, seconds = [], []
+            for i, (key, initial, _, _) in enumerate(refiner.records[:2]):
+                noise = draw_cem_noise(torch.Generator().manual_seed(ZOO2_SEED + i),
+                                       RICERefiner.MAX_INST, RICERefiner.CEM_ROUNDS,
+                                       RICERefiner.SAMPLES, RICERefiner.DEPTH)
+                for r in (refiner, cpu):
+                    r.inner.search_mode = "cem"
+                out = refiner.inner.predict(*key, initial, None,
+                                            noise={k: v.cuda() for k, v in noise.items()})
+                seconds.append(out[2])
+                pairs.append((out[0], cpu.inner.predict(*key, initial, None, noise=noise)[0]))
+            _mask_parity("perturbed-gt -> rice CEM (the CPU's noise), card against CPU", pairs,
+                         card)
+            print(f"rice CEM: the wrapper's device seconds a frame {[round(t, 4) for t in seconds]} "
+                  f"on {card}")
+        del refiner, cpu
+        torch.cuda.empty_cache()
+
+
+def zoo2_bases(frames, ckpts, card):
+    """Phase 24(c)'s uoisnet3d (its float32 models) and 24(d)'s
+    uoisnet3d-pretrained at its random init (centre head zeroed, object
+    class taking every pixel, float32), card against CPU."""
+    from quber_tpu_torch.models.layers import set_compute_dtype
+    from quber_tpu_torch.models.uois_net import UOISNet3DBaseModel
+    from quber_tpu_torch.models.uois_net_pretrained import (
+        UOISNet3DPretrainedBaseModel, set_dtype)
+    from quber_tpu_torch.train.checkpoint import load_eval_params
+
+    dsn, rrn = (load_eval_params(ckpts["uoisnet3d"][k]) for k in ("ckpt_dsn", "ckpt_rrn"))
+
+    def native(device):
+        base = UOISNet3DBaseModel(dsn, rrn, device=device)
+        set_compute_dtype(base.dsn, torch.float32)
+        set_compute_dtype(base.rrn, torch.float32)
+        return base
+
+    keys = list(frames)
+    _wrapper_parity("uoisnet3d, phase 24(b)'s weights, float32", native,
+                    keys[:ZOO2_BASE_CPU_FRAMES], card)
+    twin = UOISNet3DPretrainedBaseModel(device="cpu")
+    sd = {k: v.clone() for k, v in twin.dsn.state_dict().items()}
+    sd["cd_module.weight"].zero_()
+    sd["fg_module.weight"].zero_()
+    sd["fg_module.weight"][2] = 1.0
+    sd["decoder.last_conv.bias"] += 3.0
+    rrn_sd = twin.rrn.state_dict()
+
+    def pretrained(device):
+        base = UOISNet3DPretrainedBaseModel(sd, rrn_sd, device=device)
+        set_dtype(base.dsn, torch.float32)
+        set_dtype(base.rrn, torch.float32)
+        return base
+
+    _wrapper_parity("uoisnet3d-pretrained, random init, centre head zeroed, float32",
+                    pretrained, keys[:ZOO2_BASE_CPU_FRAMES], card)
+
+
+def zoo2_phase(root, params, frames, dev, card, work):
+    """Phase 24: UOIS-Net-3D, CascadePSP and RICE on the card. Returns the
+    launches of 24(c)'s uoisnet3d passes."""
+    zoo2_forwards(dev, card)
+    ckpts = zoo2_training(dev, card, work)
+    os.environ["QUBER_UOIS3D_RRN_CKPT"] = ckpts["uoisnet3d"]["ckpt_rrn"]
+    launches = base_evaluation("uoisnet3d", "QUBER_UOIS3D_DSN_CKPT",
+                               ckpts["uoisnet3d"]["ckpt_dsn"], root, params, frames, card,
+                               "uoisnet3d (phase 24(b)'s weights)")
+    base_device_seconds("uoisnet3d", frames, card)
+    torch.cuda.empty_cache()
+    zoo2_refiners(root, frames, ckpts, card)
+    zoo2_bases(frames, ckpts, card)
+    return launches
+
+
 def _elapsed(what):
     print(f"[{time.perf_counter() - _T0:.1f} s] {what} done", flush=True)
 
@@ -2622,6 +3057,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         zoo_launches = zoo_phase(root, params, frames, dev, card, work)
         _elapsed("phase 23")
+        torch.cuda.empty_cache()
+        zoo_launches["uoisnet3d"] = zoo2_phase(root, params, frames, dev, card, work)
+        _elapsed("phase 24")
     # the serving shapes' entries: launches on the single-frame CLI path
     # (predict, K = 24) and on the benchmark's batches of 16
     for row in rows:
@@ -2645,7 +3083,8 @@ def main() -> int:
         # the launches of the device-target steps from files (phase 22(b))
         row["file_train"] = {"launches": file_launches[name],
                              "path": f"{FILE_STEPS} device-target steps from UOAIS-Sim files"}
-        # the MSMFormer / UOAIS-Net -> refiner evaluations (phase 23(c))
+        # the MSMFormer / UOAIS-Net / UOIS-Net-3D -> refiner evaluations
+        # (phases 23(c) and 24(c))
         row["zoo_eval"] = {base: {"launches_per_image": n[0][name],
                                   "launches_streamed": n[1][name],
                                   "path": f"run_eval, base {base}, {EVAL_FRAMES} frames"}

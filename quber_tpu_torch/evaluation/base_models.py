@@ -11,17 +11,21 @@ The learned base segmenters and where their weights come from:
   * `msmformer`, `msmformer-zoomin`: $QUBER_MSMFORMER_NATIVE_CKPT;
   * `uoaisnet`, `uoaisnet-amodal`: $QUBER_UOAISNET_CKPT, with the score
     threshold $QUBER_UOAISNET_THRESH (default 0.5);
+  * `uoisnet3d`: $QUBER_UOIS3D_DSN_CKPT and $QUBER_UOIS3D_RRN_CKPT (the
+    ckpt_dsn / ckpt_rrn directories of train_zoo_torch.py --model uoisnet3d);
 each a checkpoint directory of train_zoo_torch.py or an int8 .npz in the JAX
-package's layout, and a random init from seed 0 when it is unset or holds no
+package's layout, and a random init when it is unset or holds no
 checkpoint, as in the reference. The reference's released checkpoints:
   * `msmformer-pretrained`: $QUBER_MSMFORMER_CKPT (required);
   * `uoaisnet-pretrained`: $QUBER_UOAIS_CKPT (a random init without it, for
     timing), with $QUBER_CGNET_CKPT optionally naming the CGNet whose
     foreground filters its masks;
+  * `uoisnet3d-pretrained`: $QUBER_UOIS_DSN_CKPT and $QUBER_UOIS_RRN_CKPT
+    (each a random init without it);
 each a reference .pth (read through models/import_zoo) or a save_params
 directory of the port's state dict. The other learned base segmenters of
-the zoo are not ported yet: their names raise NotImplementedError
-(ROADMAP.md, Queue 1 item 14).
+the zoo (SAM and the open-vocabulary ones) are not ported yet: their names
+raise NotImplementedError (ROADMAP.md, Queue 1 item 14).
 """
 
 from __future__ import annotations
@@ -35,9 +39,7 @@ from quber_tpu_torch.data.perturb import perturb_masks
 from quber_tpu_torch.evaluation.datasets import BG_LABELS, EVAL_H, EVAL_W
 from quber_tpu_torch.ops.preprocess import resize_nearest
 
-ZOO_BASE_MODELS = (
-    "uoisnet3d", "uoisnet3d-pretrained", "sam", "sam-depth", "detic", "grounded-sam",
-)
+ZOO_BASE_MODELS = ("sam", "sam-depth", "detic", "grounded-sam")
 
 
 class Empty:
@@ -152,6 +154,15 @@ def _reference_weights(path: str, importer):
     return {k: torch.as_tensor(v) for k, v in params.items()}
 
 
+def _reference_weights_or_none(env: str, default: str, importer):
+    """_reference_weights of $`env` (else `default`), or None (a random init,
+    for timing without a checkpoint) where nothing is there."""
+    try:
+        return _reference_weights(os.environ.get(env, default), importer)
+    except FileNotFoundError:
+        return None
+
+
 def build_base_model(name: str, dataset: str, npy_folder: str = "", device="cuda"):
     if name == "gt":
         return GT(dataset)
@@ -192,19 +203,34 @@ def build_base_model(name: str, dataset: str, npy_folder: str = "", device="cuda
         from quber_tpu_torch.models.import_zoo import import_uoais_net
         from quber_tpu_torch.models.uoais_net_pretrained import UOAISNetPretrainedBaseModel
 
-        ckpt = os.environ.get("QUBER_UOAIS_CKPT", "output/uoais_net/ckpt")
-        try:
-            params = _reference_weights(ckpt, import_uoais_net)
-        except FileNotFoundError:
-            params = None  # a random init, for timing without a checkpoint
+        params = _reference_weights_or_none("QUBER_UOAIS_CKPT", "output/uoais_net/ckpt",
+                                            import_uoais_net)
         fg_ckpt = os.environ.get("QUBER_CGNET_CKPT", "")
         fg_params = _restore_or_none(fg_ckpt) if fg_ckpt else None
         return UOAISNetPretrainedBaseModel(params, dataset=dataset, fg_params=fg_params,
                                            device=device)
+    if name == "uoisnet3d":
+        from quber_tpu_torch.models.uois_net import UOISNet3DBaseModel
+
+        return UOISNet3DBaseModel(
+            dsn_params=_restore_or_none(os.environ.get("QUBER_UOIS3D_DSN_CKPT", "")),
+            rrn_params=_restore_or_none(os.environ.get("QUBER_UOIS3D_RRN_CKPT", "")),
+            dataset=dataset, device=device)
+    if name == "uoisnet3d-pretrained":
+        from quber_tpu_torch.models.import_zoo import import_uois_dsn, import_uois_rrn
+        from quber_tpu_torch.models.uois_net_pretrained import UOISNet3DPretrainedBaseModel
+
+        return UOISNet3DPretrainedBaseModel(
+            _reference_weights_or_none("QUBER_UOIS_DSN_CKPT", "output/uois_dsn/ckpt",
+                                       import_uois_dsn),
+            _reference_weights_or_none("QUBER_UOIS_RRN_CKPT", "output/uois_rrn/ckpt",
+                                       import_uois_rrn),
+            dataset=dataset, device=device)
     if name in ZOO_BASE_MODELS:
         raise NotImplementedError(
             f"base model {name} is not ported yet (ROADMAP.md, Queue 1 item 14)")
     raise NotImplementedError(
         f"base model {name}; available: gt, empty, npy, perturbed-gt, "
         "perturbed-gt-structural, ucn, ucn-zoomin, msmformer, msmformer-zoomin, "
-        "msmformer-pretrained, uoaisnet, uoaisnet-amodal, uoaisnet-pretrained")
+        "msmformer-pretrained, uoaisnet, uoaisnet-amodal, uoaisnet-pretrained, uoisnet3d, "
+        "uoisnet3d-pretrained")

@@ -17,8 +17,12 @@ for the CPU. Each QuBERRefiner adds its host and device seconds to
 foreground net, which reuses the frame read at 640x480 (LMFFNet) or reads
 its own at 320x240 (CGNet)).
 
-The zoo refiners (CascadePSP, RICE, SAM / HQ-SAM) are not ported yet:
-their names raise NotImplementedError (ROADMAP.md, Queue 1 item 14).
+The zoo refiners: `cascadepsp` / `cascadepsp-rgbd` (models/cascadepsp,
+weights from `params` or $QUBER_CASCADEPSP_CKPT, a random init without
+either) and `rice` (models/rice, the NodeScorer from `params` or
+$QUBER_RICE_CKPT, a random init without a checkpoint there; the search
+$QUBER_RICE_SEARCH, greedy by default, or cem). SAM / HQ-SAM are not ported
+yet: their names raise NotImplementedError (ROADMAP.md, Queue 1 item 14).
 """
 
 from __future__ import annotations
@@ -33,7 +37,7 @@ from quber_tpu_torch.data import png
 from quber_tpu_torch.evaluation.datasets import EVAL_H, EVAL_W
 from quber_tpu_torch.ops.preprocess import load_rgbd, resize_linear, resize_nearest
 
-ZOO_REFINERS = ("cascadepsp", "cascadepsp-rgbd", "rice", "sam", "hq-sam", "hq-sam-pretrained")
+ZOO_REFINERS = ("sam", "hq-sam", "hq-sam-pretrained")
 
 
 class LoadNpyRefinerModel:
@@ -197,6 +201,25 @@ def build_refiner_model(name: str, dataset: str, config=None, params=None,
         return IdentityRefiner()
     if name == "npy":
         return LoadNpyRefinerModel(npy_folder, dataset)
+    if name in ("cascadepsp", "cascadepsp-rgbd"):
+        from quber_tpu_torch.models.cascadepsp import CascadePSPRefiner
+        from quber_tpu_torch.train.checkpoint import load_eval_params
+
+        ckpt = os.environ.get("QUBER_CASCADEPSP_CKPT", "")
+        if params is None and ckpt:
+            params = load_eval_params(ckpt)
+        return CascadePSPRefiner(params=params, dataset=dataset, device=device)
+    if name == "rice":
+        from quber_tpu_torch.evaluation.base_models import _restore_or_none
+        from quber_tpu_torch.models.rice import RICERefiner
+
+        if params is None:
+            params = _restore_or_none(os.environ.get("QUBER_RICE_CKPT", ""))
+        # greedy by default: it takes each operation on its own margin-gated
+        # gain, where CEM takes whole trajectories (a clear repair can carry
+        # a damaging operation along)
+        return RICERefiner(params=params, dataset=dataset, device=device,
+                           search=os.environ.get("QUBER_RICE_SEARCH", "greedy"))
     if name in ZOO_REFINERS:
         raise NotImplementedError(
             f"refiner model {name} is not ported yet (ROADMAP.md, Queue 1 item 14)")
@@ -204,4 +227,4 @@ def build_refiner_model(name: str, dataset: str, config=None, params=None,
         return None
     raise NotImplementedError(
         f"refiner model {name}; available: maskrefiner, maskrefiner-nofilter, "
-        "identity, npy")
+        "identity, npy, cascadepsp, cascadepsp-rgbd, rice")

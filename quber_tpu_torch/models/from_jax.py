@@ -1,6 +1,8 @@
 """Carry a flax variable tree across to a torch state dict (the MaskRefiner
 in every configuration, the Panoptic-DeepLab baseline, the UCN embedding
-net and the foreground nets CGNet and LMFFNet).
+net, the foreground nets CGNet and LMFFNet, MSMFormer and UOAIS-Net,
+UOIS-Net-3D's DSN and RRN in both variants, CascadePSP's PSPNetUOAIS and
+RICE's NodeScorer).
 
 The port's modules are named after the flax scopes, so the map is a rename:
   * `<scope>/kernel` -> `<scope>.weight`, conv kernels HWIO -> OIHW and
@@ -9,8 +11,9 @@ The port's modules are named after the flax scopes, so the map is a rename:
     with `scale` -> `weight`, `frozen_weight` / `frozen_bias` -> `weight` /
     `bias` and `frozen_mean` / `frozen_var` -> `running_mean` / `running_var`;
   * `batch_stats/.../BatchNorm_0/{mean,var}` -> `norm.running_{mean,var}`,
-    and a named BatchNorm scope's (UCN's `bn1`, `downsample_bn`, ...) ->
-    `<scope>.running_{mean,var}`;
+    and a named BatchNorm scope's (UCN's and PSPNetUOAIS's `bn1`,
+    `downsample_bn`, ...) -> `<scope>.running_{mean,var}`; a named GroupNorm
+    scope (the released UOIS-Net-3D's `gn`, `gn1`) keeps its name;
   * a PReLU's `alpha` -> the `weight` of its nn.PReLU;
   * a LayerNorm's `scale` -> `weight` (its scope keeps its name);
   * flax MultiHeadDotProductAttention's DenseGeneral kernels (`query`,

@@ -1,12 +1,15 @@
 """Importers of the reference's released checkpoints: a torch state dict of
 the reference's module tree -> the state dict of the port's module.
 
-Port of the MSMFormer and UOAIS-Net importers of
+Port of the MSMFormer, UOAIS-Net, UOIS-Net-3D and CascadePSP importers of
 quber_tpu/models/import_zoo.py, with the same key maps, written straight
 onto the port's modules (which carry the flax port's names, in torch's
 layouts, so that no tensor is transposed): `import_msmformer` fills
-models/msmformer_pretrained.PretrainedMSMFormer and `import_uoais_net`
-models/uoais_net_pretrained.UOAISNetPretrained. Every key of the checkpoint
+models/msmformer_pretrained.PretrainedMSMFormer, `import_uoais_net`
+models/uoais_net_pretrained.UOAISNetPretrained, `import_uois_dsn` and
+`import_uois_rrn` models/uois_net_pretrained.PretrainedDSN and
+PretrainedRRN, and `import_cascadepsp` models/cascadepsp.PSPNetUOAIS. Every
+key of the checkpoint
 must be mapped (or be a known buffer that carries no network state), else
 KeyError names the ones left (strict, the default).
 """
@@ -228,6 +231,80 @@ def import_uoais_net(state_dict: dict, strict: bool = True) -> dict:
         if (k in ("pixel_mean", "pixel_std") or k.startswith("proposal_generator.anchor_generator")
                 or k.startswith("roi_heads.occ_cls_mask_head.deconv")):
             b.used.add(k)
+    return b.result(strict)
+
+
+# ---------------------------------------------------------------------------
+# UOIS-Net-3D (DSN and RRN checkpoints: {"model": state dict}, DataParallel's
+# "module." prefixes)
+# ---------------------------------------------------------------------------
+
+
+def _import_uois(state_dict: dict, strict: bool) -> dict:
+    """The DSN / RRN map, by rule: the port's modules carry the reference's
+    names, so every `<module>.weight` is a bias-free conv (`last_conv` has
+    a bias) or, for a `gn` / `gn1` leaf, a GroupNorm's weight and bias."""
+    if isinstance(state_dict.get("model"), dict):
+        state_dict = state_dict["model"]
+    b = _Builder({k.removeprefix("module."): v for k, v in state_dict.items()})
+    for k in sorted(b.sd):
+        if not k.endswith(".weight"):
+            continue
+        mod = k[:-len(".weight")]
+        path = mod.split(".")
+        if path[-1] in ("gn", "gn1"):
+            b.layernorm(path, mod)
+        else:
+            b.dense(path, mod)
+    return b.result(strict)
+
+
+def import_uois_dsn(state_dict: dict, strict: bool = True) -> dict:
+    """DepthSeedingNetwork_3D_TOD_checkpoint.pth -> PretrainedDSN's state dict."""
+    return _import_uois(state_dict, strict)
+
+
+def import_uois_rrn(state_dict: dict, strict: bool = True) -> dict:
+    """RRN_OID_checkpoint.pth -> PretrainedRRN's state dict."""
+    return _import_uois(state_dict, strict)
+
+
+# ---------------------------------------------------------------------------
+# CascadePSP-RGBD (PSPNet_UOAIS, torchvision trunk naming; SyncBN keys in
+# BatchNorm's layout)
+# ---------------------------------------------------------------------------
+
+
+def import_cascadepsp(state_dict: dict, layers=(3, 4, 6, 3), strict: bool = True) -> dict:
+    """A PSPNet_UOAIS state dict (model_40000) -> PSPNetUOAIS's."""
+    b = _Builder({k.removeprefix("module."): v for k, v in state_dict.items()})
+    b.dense(["feats", "conv1"], "feats.conv1")
+    b.bn(["feats", "bn1"], "feats.bn1")
+    for li, n in enumerate(layers):
+        for bi in range(n):
+            t, f = f"feats.layer{li + 1}.{bi}", ["feats", f"layer{li + 1}_{bi}"]
+            for c in (1, 2, 3):
+                b.dense(f + [f"conv{c}"], f"{t}.conv{c}")
+                b.bn(f + [f"bn{c}"], f"{t}.bn{c}")
+            if f"{t}.downsample.0.weight" in b.sd:
+                b.dense(f + ["downsample_conv"], f"{t}.downsample.0")
+                b.bn(f + ["downsample_bn"], f"{t}.downsample.1")
+    for i in range(4):
+        b.dense(["psp", f"stage_{i}"], f"psp.stages.{i}.1")
+    b.dense(["psp", "bottleneck"], "psp.bottleneck")
+    for k in (1, 2, 3):
+        up = f"up_{k}"
+        for seq in ("conv", "conv2"):
+            b.bn([up, f"{seq}_bn0"], f"{up}.{seq}.0")
+            b.dense([up, f"{seq}_conv0"], f"{up}.{seq}.2")
+            b.bn([up, f"{seq}_bn1"], f"{up}.{seq}.3")
+            b.dense([up, f"{seq}_conv1"], f"{up}.{seq}.5")
+        b.dense([up, "shortcut"], f"{up}.shortcut")
+    for name in ("final_28", "final_56"):
+        b.dense([f"{name}_0"], f"{name}.0")
+        b.dense([f"{name}_2"], f"{name}.2")
+    b.dense(["final_11"], "final_11")
+    b.dense(["final_21"], "final_21")
     return b.result(strict)
 
 

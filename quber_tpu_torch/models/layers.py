@@ -13,15 +13,19 @@ Compute type, as flax's modules treat it: a Conv2d casts its input, kernel
 and bias to its `compute_dtype` (float32 unless the model sets bfloat16) and
 returns that type; FrozenBatchNorm computes its scale and shift in float32
 and applies them in the input's type; GroupNorm and BatchNorm, which have no
-compute type in the reference, normalise in float32 and return float32.
-Parameters stay float32 throughout.
+compute type in the reference, normalise in float32 and return float32 (a
+GroupNorm its `out_dtype` where a model gives it flax's dtype). Parameters
+stay float32 throughout. `resize_bilinear` is jax.image.resize's bilinear
+(antialiased when it shrinks), for the wrappers that resize frames with it.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Callable, Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -34,6 +38,45 @@ def upsample_bilinear(x: torch.Tensor, scale: int | None = None,
     if size is None:
         size = (x.shape[2] * scale, x.shape[3] * scale)
     return F.interpolate(x, size=tuple(size), mode="bilinear", align_corners=False)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_linear_weights(n_in: int, n_out: int) -> np.ndarray:
+    """The [n_in, n_out] float32 weights of jax.image.resize's "bilinear"
+    along one axis (jax.image.scale_and_translate with the triangle kernel,
+    antialiased: a shrink widens the kernel by in / out), in float32 as the
+    reference's compiled resize computes them at the evaluation wrappers'
+    sizes (480 / 640 <-> 224): the sample position as one fused multiply-add
+    and the division by the kernel's width as a product with its reciprocal."""
+    f32 = np.float32
+    scale = n_out / n_in
+    inv_scale = f32(1.0 / scale)
+    kernel_scale = f32(max(1.0 / scale, 1.0))
+    cells = np.arange(n_out, dtype=f32) + f32(0.5)
+    # a float32 product is exact in float64: one rounding, as a fused multiply-add
+    sample = (cells.astype(np.float64) * np.float64(inv_scale) - 0.5).astype(f32)
+    x = np.abs(sample[None, :] - np.arange(n_in, dtype=f32)[:, None]) * (f32(1.0) / kernel_scale)
+    w = np.maximum(f32(0.0), f32(1.0) - x)
+    total = w.sum(axis=0, keepdims=True, dtype=f32)
+    w = np.where(np.abs(total) > f32(1000.0 * np.finfo(np.float32).eps),
+                 w / np.where(total != 0, total, f32(1.0)), f32(0.0))
+    inside = (sample >= f32(-0.5)) & (sample <= f32(n_in - 0.5))
+    return np.where(inside[None, :], w, f32(0.0)).astype(f32)
+
+
+def resize_bilinear(x: torch.Tensor, size: tuple[int, int]) -> torch.Tensor:
+    """jax.image.resize(..., "bilinear") of the last two axes of a float
+    tensor [..., H, W] -> [..., size[0], size[1]]: separable weight matrices
+    (antialiased when shrinking, unlike F.interpolate), two float32 products."""
+    h, w = x.shape[-2:]
+    out = x.float()
+    if size[0] != h:
+        wh = torch.from_numpy(_jax_linear_weights(h, size[0])).to(x.device)
+        out = torch.matmul(wh.T, out)
+    if size[1] != w:
+        ww = torch.from_numpy(_jax_linear_weights(w, size[1])).to(x.device)
+        out = torch.matmul(out, ww)
+    return out
 
 
 class Conv2d(nn.Conv2d):
@@ -151,12 +194,27 @@ class MultiHeadDotProductAttention(nn.Module):
         return self.out(y)
 
 
+def set_compute_dtype(model: nn.Module, dtype: torch.dtype) -> None:
+    """Give every Conv, Dense, LayerNorm, transposed conv and attention of
+    `model` the compute type `dtype` (flax's module dtype), recorded as
+    `model.dtype`."""
+    for mod in model.modules():
+        if isinstance(mod, (Conv2d, Dense, LayerNorm, ConvTranspose2x2,
+                            MultiHeadDotProductAttention)):
+            mod.compute_dtype = dtype
+    model.dtype = dtype
+
+
 class GroupNorm(nn.GroupNorm):
-    """flax nn.GroupNorm without a dtype: statistics and output in float32,
-    whatever the input's type."""
+    """flax nn.GroupNorm: statistics and normalisation in float32, whatever
+    the input's type; the output float32, or `out_dtype` where a model sets
+    one (flax's GroupNorm given a dtype)."""
+
+    out_dtype = None
 
     def forward(self, x):
-        return F.group_norm(x.float(), self.num_groups, self.weight, self.bias, self.eps)
+        y = F.group_norm(x.float(), self.num_groups, self.weight, self.bias, self.eps)
+        return y if self.out_dtype is None else y.to(self.out_dtype)
 
 
 class FrozenBatchNorm(nn.Module):
@@ -198,6 +256,11 @@ class BatchNorm(nn.Module):
     def forward(self, x):
         x = x.float()
         if not self.training:
+            if isinstance(self.running_mean, nn.Parameter):
+                # statistics a recipe trains: flax's formula, differentiable in them
+                shape = (-1,) + (1,) * (x.dim() - 2)
+                mul = torch.rsqrt(self.running_var + self.eps) * self.weight
+                return (x - self.running_mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
                                 self.bias, training=False, eps=self.eps)
         # F.batch_norm with momentum 1 leaves the batch's mean and UNBIASED

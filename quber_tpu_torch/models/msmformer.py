@@ -37,9 +37,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from quber_tpu_torch.models.layers import (
+from quber_tpu_torch.models.layers import (  # noqa: F401  (set_compute_dtype: callers import it here)
     Conv2d, ConvNorm, ConvTranspose2x2, Dense, LayerNorm, MultiHeadDotProductAttention,
-    flax_softmax, upsample_bilinear)
+    flax_softmax, set_compute_dtype, upsample_bilinear)
 from quber_tpu_torch.models.resnet import ResNetTrunk
 from quber_tpu_torch.ops.deform_attn import ms_deform_attn
 from quber_tpu_torch.ops.meanshift import l2_normalize, label_counts
@@ -54,15 +54,6 @@ def gelu(x):
          for v in (math.sqrt(2 / math.pi), 0.044715, 0.5, 1.0)}
     inner = c[math.sqrt(2 / math.pi)] * (x + c[0.044715] * x ** 3)
     return x * (c[0.5] * (c[1.0] + torch.tanh(inner)))
-
-
-def set_compute_dtype(model: nn.Module, dtype: torch.dtype) -> None:
-    """Give every Conv, Dense, LayerNorm, transposed conv and attention of
-    `model` the compute type `dtype` (flax's module dtype)."""
-    for mod in model.modules():
-        if isinstance(mod, (Conv2d, Dense, LayerNorm, ConvTranspose2x2,
-                            MultiHeadDotProductAttention)):
-            mod.compute_dtype = dtype
 
 
 @torch.no_grad()

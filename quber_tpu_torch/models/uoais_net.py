@@ -32,8 +32,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from quber_tpu_torch.models.layers import Conv2d, ConvNorm, ConvTranspose2x2, Dense
-from quber_tpu_torch.models.msmformer import reset_flax_init, set_compute_dtype
+from quber_tpu_torch.models.layers import (
+    Conv2d, ConvNorm, ConvTranspose2x2, Dense, set_compute_dtype)
+from quber_tpu_torch.models.msmformer import reset_flax_init
 from quber_tpu_torch.models.resnet import ResNetTrunk
 from quber_tpu_torch.ops import boxes as box_ops
 

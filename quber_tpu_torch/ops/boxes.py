@@ -137,21 +137,13 @@ def assign_fpn_levels(boxes: torch.Tensor, min_level: int = 2, max_level: int = 
     return lvl.clamp(min_level, max_level).to(torch.int32)
 
 
-def roi_align(features: torch.Tensor, boxes: torch.Tensor, out_size: int = 14,
-              stride: int = 1, offsets: torch.Tensor | None = None) -> torch.Tensor:
-    """ROI-align with one bilinear sample per output cell (detectron2's
-    aligned=True convention: cell centres at half pixels, minus half a pixel),
-    zero outside the map.
-
-    features [C, H, W] at `stride`; boxes [N, 4] XYXY in image pixels;
-    offsets [N, S, S, 2] optional learned (dy, dx) per cell, in units of the
-    box's height and width (the deformable variant). Returns
-    [N, C, out_size, out_size]."""
-    c, h, w = features.shape
+def _sample_points(boxes: torch.Tensor, out_size: int, stride: int, offsets, device):
+    """The bilinear sample of each output cell of each box: (floor y, floor
+    x, fraction y, fraction x), each [N, S, S]."""
     x0, y0, x1, y1 = (boxes.float() / stride).unbind(dim=1)
     bw = (x1 - x0).clamp_min(1e-6)[:, None]
     bh = (y1 - y0).clamp_min(1e-6)[:, None]
-    cells = torch.arange(out_size, dtype=torch.float32, device=features.device) + 0.5
+    cells = torch.arange(out_size, dtype=torch.float32, device=device) + 0.5
     # the reference's compiler divides by the constant as a product with its
     # float32 reciprocal
     inv = float(np.float32(1.0 / out_size))
@@ -163,7 +155,21 @@ def roi_align(features: torch.Tensor, boxes: torch.Tensor, out_size: int = 14,
         yy = yy + offsets[..., 0] * bh[:, :, None]
         xx = xx + offsets[..., 1] * bw[:, :, None]
     y0i, x0i = torch.floor(yy), torch.floor(xx)
-    dy, dx = yy - y0i, xx - x0i
+    return y0i, x0i, yy - y0i, xx - x0i
+
+
+def roi_align(features: torch.Tensor, boxes: torch.Tensor, out_size: int = 14,
+              stride: int = 1, offsets: torch.Tensor | None = None) -> torch.Tensor:
+    """ROI-align with one bilinear sample per output cell (detectron2's
+    aligned=True convention: cell centres at half pixels, minus half a pixel),
+    zero outside the map.
+
+    features [C, H, W] at `stride`; boxes [N, 4] XYXY in image pixels;
+    offsets [N, S, S, 2] optional learned (dy, dx) per cell, in units of the
+    box's height and width (the deformable variant). Returns
+    [N, C, out_size, out_size]."""
+    c, h, w = features.shape
+    y0i, x0i, dy, dx = _sample_points(boxes, out_size, stride, offsets, features.device)
     flat = features.reshape(c, h * w)
 
     def gather(cy, cx):
@@ -176,6 +182,25 @@ def roi_align(features: torch.Tensor, boxes: torch.Tensor, out_size: int = 14,
             + gather(y0i, x0i + 1) * ((1 - dy) * dx)[:, None]
             + gather(y0i + 1, x0i) * (dy * (1 - dx))[:, None]
             + gather(y0i + 1, x0i + 1) * (dy * dx)[:, None])
+
+
+def roi_align_each(maps: torch.Tensor, boxes: torch.Tensor, out_size: int) -> torch.Tensor:
+    """Each map of a stack [N, H, W] through its own box [N, 4] -> [N,
+    out_size, out_size]: roi_align of map i alone through box i, in one
+    gather."""
+    n, h, w = maps.shape
+    y0i, x0i, dy, dx = _sample_points(boxes, out_size, 1, None, maps.device)
+    flat = maps.reshape(n, h * w)
+
+    def gather(cy, cx):
+        inb = (cy >= 0) & (cy < h) & (cx >= 0) & (cx < w)
+        idx = cy.clamp(0, h - 1).long() * w + cx.clamp(0, w - 1).long()
+        return torch.gather(flat, 1, idx.reshape(n, -1)).reshape(idx.shape) * inb.to(maps.dtype)
+
+    return (gather(y0i, x0i) * ((1 - dy) * (1 - dx))
+            + gather(y0i, x0i + 1) * ((1 - dy) * dx)
+            + gather(y0i + 1, x0i) * (dy * (1 - dx))
+            + gather(y0i + 1, x0i + 1) * (dy * dx))
 
 
 def roi_align_multilevel(features: dict, boxes: torch.Tensor, out_size: int, strides: dict,

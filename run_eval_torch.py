@@ -26,11 +26,16 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--base-model", default="gt",
                         help="gt | empty | npy | perturbed-gt | perturbed-gt-structural | ucn | "
                              "ucn-zoomin | msmformer | msmformer-zoomin | msmformer-pretrained | "
-                             "uoaisnet | uoaisnet-amodal | uoaisnet-pretrained (weights: "
-                             "$QUBER_UCN_CKPT, $QUBER_MSMFORMER_NATIVE_CKPT, "
-                             "$QUBER_MSMFORMER_CKPT, $QUBER_UOAISNET_CKPT, $QUBER_UOAIS_CKPT)")
+                             "uoaisnet | uoaisnet-amodal | uoaisnet-pretrained | uoisnet3d | "
+                             "uoisnet3d-pretrained (weights: $QUBER_UCN_CKPT, "
+                             "$QUBER_MSMFORMER_NATIVE_CKPT, $QUBER_MSMFORMER_CKPT, "
+                             "$QUBER_UOAISNET_CKPT, $QUBER_UOAIS_CKPT, $QUBER_UOIS3D_DSN_CKPT "
+                             "and _RRN_CKPT, $QUBER_UOIS_DSN_CKPT and _RRN_CKPT)")
     parser.add_argument("--refiner-model", default="maskrefiner",
-                        help="maskrefiner | maskrefiner-nofilter | identity | npy | save")
+                        help="maskrefiner | maskrefiner-nofilter | identity | npy | save | "
+                             "cascadepsp | cascadepsp-rgbd | rice (weights: --weights-file, "
+                             "else $QUBER_CASCADEPSP_CKPT / $QUBER_RICE_CKPT; "
+                             "$QUBER_RICE_SEARCH greedy or cem)")
     parser.add_argument("--test-dataset", default="OSD",
                         help="OSD | OCID | WISDOM | HOPE | DoPose")
     parser.add_argument("--dataset-path", default=None)

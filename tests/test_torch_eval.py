@@ -269,13 +269,13 @@ def test_run_eval_matches_jax(case, refiners, osd6, trees, tmp_path):
     assert set(got["seconds"]) >= {"annotation", "base", "metrics"}
 
 
-@pytest.mark.parametrize("name", ["uoisnet3d", "grounded-sam", "sam", "detic"])
+@pytest.mark.parametrize("name", ["sam-depth", "grounded-sam", "sam", "detic"])
 def test_zoo_base_models_wait_for_item_14(name):
     with pytest.raises(NotImplementedError, match="item 14"):
         tbase.build_base_model(name, "OSD")
 
 
-@pytest.mark.parametrize("name", ["cascadepsp", "rice", "hq-sam"])
+@pytest.mark.parametrize("name", ["sam", "hq-sam-pretrained", "hq-sam"])
 def test_zoo_refiners_wait_for_item_14(name):
     with pytest.raises(NotImplementedError, match="item 14"):
         tref.build_refiner_model(name, "OSD", device="cpu")

@@ -1,5 +1,5 @@
-"""build_base_model for the MSMFormer and UOAIS-Net families against the
-JAX package's evaluation wrappers on two frames of the synthetic-OSD
+"""build_base_model for the MSMFormer, UOAIS-Net and UOIS-Net-3D families
+against the JAX package's evaluation wrappers on frames of the synthetic-OSD
 protocol written to disk, at the same weights.
 
 The native models' weights are the port's seed-0 init saved as an int8
@@ -30,12 +30,16 @@ from quber_tpu.models.msmformer import MSMFormer as JMSMFormer
 from quber_tpu.models.msmformer import MSMFormerBaseModel as JMSMFormerBaseModel
 from quber_tpu.models.uoais_net import UOAISNet as JUOAISNet
 from quber_tpu.models.uoais_net import UOAISNetBaseModel as JUOAISNetBaseModel
+from quber_tpu.models.uois_net import DepthSeedingNetwork as JDSN
+from quber_tpu.models.uois_net import RegionRefinementNetwork as JRRN
+from quber_tpu.models.uois_net import UOISNet3DBaseModel as JUOIS3DBase
 from quber_tpu.train.checkpoint import load_quantized_params as jax_load_quantized
 from quber_tpu_torch.data.make_synthetic_dataset import main as make_dataset
 from quber_tpu_torch.evaluation import base_models as tbase
 from quber_tpu_torch.models.from_jax import state_dict_to_jax
 from quber_tpu_torch.models.msmformer import MSMFormer, MSMFormerBaseModel, set_compute_dtype
 from quber_tpu_torch.models.uoais_net import UOAISNet, UOAISNetBaseModel
+from quber_tpu_torch.models.uois_net import UOISNet3DBaseModel
 from quber_tpu_torch.train.checkpoint import save_quantized_params
 
 AGREEMENT = 0.995
@@ -129,5 +133,43 @@ def test_native_base_models_without_a_checkpoint_take_seed_0(monkeypatch, tmp_pa
     b = MSMFormerBaseModel(device="cpu")
     assert all(torch.equal(v, b.model.state_dict()[k]) for k, v in a.model.state_dict().items())
     for name in ("msmformer", "msmformer-zoomin", "msmformer-pretrained", "uoaisnet",
-                 "uoaisnet-amodal", "uoaisnet-pretrained"):
+                 "uoaisnet-amodal", "uoaisnet-pretrained", "uoisnet3d", "uoisnet3d-pretrained"):
         assert name not in tbase.ZOO_BASE_MODELS
+
+
+class _TwoSlotUOIS(JUOIS3DBase):
+    MAX_INSTANCES = 2
+
+
+def test_uoisnet3d_base_model_matches_jax(frames, tmp_path, monkeypatch):
+    """build_base_model("uoisnet3d") from train_zoo_torch-style checkpoint
+    directories ($QUBER_UOIS3D_DSN_CKPT / _RRN_CKPT) against the JAX wrapper
+    on the first frame: the port's seeded init with the DSN head's offset
+    rows zeroed (votes = the cloud) and its foreground bias +5, the float32
+    models, and the first 2 of the 32 slots refined in both (the RRN runs
+    at 480x640 per slot)."""
+    from quber_tpu_torch.models import uois_net as TU
+    from quber_tpu_torch.train.checkpoint import save_params
+
+    dsn, rrn = TU.DepthSeedingNetwork(), TU.RegionRefinementNetwork()
+    dsn.reset_parameters(torch.Generator().manual_seed(0))
+    rrn.reset_parameters(torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        dsn.unet.head.weight[2:] = 0.0
+        dsn.unet.head.bias[1] += 5.0
+    for env, model, name in (("QUBER_UOIS3D_DSN_CKPT", dsn, "ckpt_dsn"),
+                             ("QUBER_UOIS3D_RRN_CKPT", rrn, "ckpt_rrn")):
+        save_params(str(tmp_path / name), state_dict_to_jax(model), step=1)
+        monkeypatch.setenv(env, str(tmp_path / name))
+    port = tbase.build_base_model("uoisnet3d", "OSD", device="cpu")
+    assert isinstance(port, UOISNet3DBaseModel) and port.dsn.dtype == torch.bfloat16
+    for model in (port.dsn, port.rrn):
+        set_compute_dtype(model, torch.float32)
+    port.MAX_INSTANCES = _TwoSlotUOIS.MAX_INSTANCES
+    ref = _TwoSlotUOIS(dsn_params=state_dict_to_jax(dsn), rrn_params=state_dict_to_jax(rrn))
+    ref.dsn, ref.rrn = JDSN(), JRRN()
+    _agree(port, ref, frames[:1])
+    monkeypatch.setenv("QUBER_UOIS3D_DSN_CKPT", str(tmp_path / "missing"))
+    seeded = tbase.build_base_model("uoisnet3d", "OSD", device="cpu")
+    want = UOISNet3DBaseModel(device="cpu").dsn.state_dict()
+    assert all(torch.equal(v, want[k]) for k, v in seeded.dsn.state_dict().items())

@@ -1,4 +1,5 @@
-"""build_base_model("msmformer-pretrained" / "uoaisnet-pretrained") against
+"""build_base_model("msmformer-pretrained" / "uoaisnet-pretrained" /
+"uoisnet3d-pretrained") against
 the JAX package's wrappers over imported reference weights, on two frames of
 the synthetic-OSD protocol written to disk.
 
@@ -11,7 +12,10 @@ wrappers take the same state dict through the JAX package's importers.
 Tolerance: the instance count equal and >= 99.5% of the pixels' labels
 equal on every frame. Without $QUBER_UOAIS_CKPT the UOAIS-Net wrapper takes
 a random init, as the reference's does; msmformer-pretrained needs its
-checkpoint.
+checkpoint. UOIS-Net-3D's DSN and RRN are synthesised at feature_dim 10
+(the wrapper reads the width off the weights), the DSN's centre head zeroed
+and its object class taking every pixel, and both wrappers run their float32
+models (at a random init bfloat16 decides the classes differently).
 """
 
 import numpy as np
@@ -27,7 +31,8 @@ from quber_tpu_torch.evaluation import base_models as tbase
 from quber_tpu_torch.models.msmformer_pretrained import PretrainedMSMFormerBaseModel
 from quber_tpu_torch.models.uoais_net_pretrained import UOAISNetPretrainedBaseModel
 from test_torch_zoo_base import _agree
-from test_torch_zoo_pretrained import reference_msmformer_state, uoais_state  # noqa: F401
+from test_torch_zoo_pretrained import (  # noqa: F401
+    UOIS_FD, reference_msmformer_state, reference_uois_cascade_state, uoais_state)
 
 FULL_MSM = dict(embed_dim=64, hidden_dim=256, nheads=8, dim_feedforward=2048, num_queries=100,
                 dec_layers=6, num_classes=2, mask_dim=256)
@@ -85,3 +90,32 @@ def test_uoaisnet_pretrained_matches_jax(frames, uoais_state, tmp_path, monkeypa
     seeded = tbase.build_base_model("uoaisnet-pretrained", "OSD", device="cpu")
     want = UOAISNetPretrainedBaseModel(device="cpu").model.state_dict()
     assert all(torch.equal(v, want[k]) for k, v in seeded.model.state_dict().items())
+
+
+def test_uoisnet3d_pretrained_matches_jax(frames, tmp_path, monkeypatch):
+    from quber_tpu.models.uois_net_pretrained import PretrainedDSN as JDSN
+    from quber_tpu.models.uois_net_pretrained import PretrainedRRN as JRRN
+    from quber_tpu.models.uois_net_pretrained import UOISNet3DPretrainedBaseModel as JUOIS
+    from quber_tpu_torch.models import uois_net_pretrained as TUP
+
+    dsn, _ = reference_uois_cascade_state("uois_dsn", seed=5)
+    rrn, _ = reference_uois_cascade_state("uois_rrn", seed=6)
+    sd = dsn["model"]
+    sd["module.cd_module.weight"] = np.zeros_like(sd["module.cd_module.weight"])
+    sd["module.fg_module.weight"] = np.zeros_like(sd["module.fg_module.weight"])
+    sd["module.fg_module.weight"][2] = 1.0
+    sd["module.decoder.last_conv.bias"] = sd["module.decoder.last_conv.bias"] + 3.0
+    monkeypatch.setenv("QUBER_UOIS_DSN_CKPT", _save(sd, str(tmp_path / "dsn.pth")))
+    monkeypatch.setenv("QUBER_UOIS_RRN_CKPT", _save(rrn, str(tmp_path / "rrn.pth")))
+    port = tbase.build_base_model("uoisnet3d-pretrained", "OSD", device="cpu")
+    assert isinstance(port, TUP.UOISNet3DPretrainedBaseModel)
+    for model in (port.dsn, port.rrn):
+        assert model.dtype == torch.bfloat16
+        TUP.set_dtype(model, torch.float32)
+    ref = JUOIS(JIZ.import_uois_dsn(dsn), JIZ.import_uois_rrn(rrn), feature_dim=UOIS_FD)
+    ref.dsn, ref.rrn = JDSN(feature_dim=UOIS_FD), JRRN(feature_dim=UOIS_FD)
+    _agree(port, ref, frames[:1])
+    monkeypatch.setenv("QUBER_UOIS_DSN_CKPT", str(tmp_path / "missing"))
+    seeded = tbase.build_base_model("uoisnet3d-pretrained", "OSD", device="cpu")
+    want = TUP.UOISNet3DPretrainedBaseModel(device="cpu").dsn.state_dict()
+    assert all(torch.equal(v, want[k]) for k, v in seeded.dsn.state_dict().items())

@@ -192,3 +192,103 @@ def test_reference_checkpoint_file_reads_through_the_importer(tmp_path):
     got = TIZ.import_msmformer(TIZ.load_reference_checkpoint(path))
     want = TIZ.import_msmformer(sd)
     assert set(got) == set(want) and all(torch.equal(got[k], want[k]) for k in want)
+
+
+# --- UOIS-Net-3D's DSN and RRN, CascadePSP's PSPNet_UOAIS ---------------------
+
+UOIS_FD = 10  # the released width is 64; the map is per block
+
+
+def _reference_psp_name(name):
+    """A PSPNetUOAIS key of the port -> the reference's (torchvision trunk
+    naming, nn.Sequential indices)."""
+    import re
+
+    name = re.sub(r"feats\.layer(\d)_(\d+)\.", r"feats.layer\1.\2.", name)
+    name = name.replace("downsample_conv", "downsample.0").replace("downsample_bn", "downsample.1")
+    name = re.sub(r"psp\.stage_(\d)\.", r"psp.stages.\1.1.", name)
+    for seq in ("conv2", "conv"):
+        for port, ref in (("bn0", "0"), ("conv0", "2"), ("bn1", "3"), ("conv1", "5")):
+            name = name.replace(f".{seq}_{port}.", f".{seq}.{ref}.")
+    return re.sub(r"final_(28|56)_(\d)\.", r"final_\1.\2.", name)
+
+
+def reference_uois_cascade_state(which, seed=0):
+    """A state dict in the reference's layout for `which` (uois_dsn: the
+    DSN checkpoint's {"model": ...} with DataParallel's prefixes; uois_rrn:
+    the RRN's; cascadepsp: PSPNet_UOAIS's with BatchNorm counters), seeded:
+    LeCun weights, the norms' affine and BatchNorm statistics moved by
+    noise. Returns (reference state dict, the port module it fills)."""
+    from quber_tpu_torch.models.cascadepsp import PSPNetUOAIS
+    from quber_tpu_torch.models.uois_net_pretrained import PretrainedDSN, PretrainedRRN
+
+    model = {"uois_dsn": lambda: PretrainedDSN(feature_dim=UOIS_FD),
+             "uois_rrn": lambda: PretrainedRRN(feature_dim=UOIS_FD),
+             "cascadepsp": PSPNetUOAIS}[which]()
+    g = torch.Generator().manual_seed(seed)
+    model.reset_parameters(g)
+    sd = {}
+    for k, v in model.state_dict().items():
+        if k.endswith("running_var"):
+            v = 0.5 + torch.rand(v.shape, generator=g)
+        elif k.endswith("running_mean") or ".gn" in k or ".bn" in k or "_bn" in k:
+            v = v + 0.1 * torch.randn(v.shape, generator=g)
+        sd[k] = v.numpy()
+    if which == "cascadepsp":
+        ref = {}
+        for k, v in sd.items():
+            ref[f"module.{_reference_psp_name(k)}"] = v
+            if k.endswith("running_var"):
+                ref[f"module.{_reference_psp_name(k)[:-len('running_var')]}num_batches_tracked"] \
+                    = np.asarray(100)
+        return ref, model
+    if which == "uois_dsn":
+        return {"model": {f"module.{k}": v for k, v in sd.items()}}, model
+    return sd, model
+
+
+@pytest.mark.parametrize("which", ["uois_dsn", "uois_rrn", "cascadepsp"])
+def test_uois_and_cascadepsp_importers_fill_the_twins(which):
+    from quber_tpu.models.cascadepsp import PSPNetUOAIS as JPSP
+    from quber_tpu.models.uois_net_pretrained import PretrainedDSN as JDSN
+    from quber_tpu.models.uois_net_pretrained import PretrainedRRN as JRRN
+
+    sd, model = reference_uois_cascade_state(which, seed=3)
+    importer = getattr(TIZ, f"import_{which}")
+    got = importer(sd)
+    assert set(got) == set(model.state_dict())  # every tensor of the module filled
+    model.load_state_dict(got, strict=True)
+    model.eval()
+    variables = getattr(JIZ, f"import_{which}")(sd)
+    rng = np.random.RandomState(2)
+    if which == "cascadepsp":
+        x = (rng.randn(1, 64, 64, 3).astype(np.float32), rng.rand(1, 64, 64, 1).astype(np.float32),
+             (rng.rand(1, 64, 64, 1) > 0.5).astype(np.float32) * 2 - 1)
+        want = jax.jit(JPSP().apply)(variables, *x)
+        want = [np.asarray(want[k]) for k in sorted(want)]
+        with torch.no_grad():
+            out = model(*(torch.from_numpy(a).permute(0, 3, 1, 2) for a in x))
+        got_out = [out[k].permute(0, 2, 3, 1).numpy() for k in sorted(out)]
+    else:
+        c, size = (3, (64, 96)) if which == "uois_dsn" else (4, (64, 64))
+        x = rng.randn(1, *size, c).astype(np.float32)
+        jm = (JDSN if which == "uois_dsn" else JRRN)(feature_dim=UOIS_FD)
+        want = jax.jit(jm.apply)({"params": variables["params"]}, x)
+        want = [np.asarray(w) for w in (want if isinstance(want, tuple) else (want,))]
+        with torch.no_grad():
+            out = model(torch.from_numpy(x).permute(0, 3, 1, 2))
+        got_out = [o.permute(0, 2, 3, 1).numpy() if o.dim() == 4 else o.numpy()
+                   for o in (out if isinstance(out, tuple) else (out,))]
+    for g, w in zip(got_out, want):
+        assert g.shape == w.shape and np.abs(w).max() > 0
+        assert np.abs(g - w).max() <= ATOL * max(1.0, np.abs(w).max()), np.abs(g - w).max()
+    flat = sd["model"] if which == "uois_dsn" else sd
+    # a key no rule reads (the UOIS map takes every `.weight` by rule)
+    extra = dict(flat, **{"module.extra.running_mean": np.zeros(3, np.float32)})
+    with pytest.raises(KeyError, match="unmapped"):
+        importer({"model": extra} if which == "uois_dsn" else extra)
+    if which == "cascadepsp":
+        missing = dict(sd)
+        missing.pop("module.psp.bottleneck.weight")
+        with pytest.raises(KeyError):
+            importer(missing)

@@ -1,10 +1,13 @@
 #!/usr/bin/env python3
-"""Base-segmenter training of the PyTorch/CUDA port on rendered synthetic
-scenes (one GPU).
+"""Training of the zoo's base segmenters and refiner baselines in the
+PyTorch/CUDA port on rendered synthetic scenes (one GPU).
 
     python3 train_zoo_torch.py --model ucn --max-iter 2000 --output-dir output/ucn_synth
     python3 train_zoo_torch.py --model msmformer --max-iter 2000 --output-dir output/msmformer_synth
     python3 train_zoo_torch.py --model uoaisnet --size 192 --max-iter 3000 --output-dir output/uoaisnet_synth
+    python3 train_zoo_torch.py --model uoisnet3d --max-iter 2000 --output-dir output/uoisnet3d_synth
+    python3 train_zoo_torch.py --model cascadepsp --size 256 --max-iter 2000 --output-dir output/cascadepsp_synth
+    python3 train_zoo_torch.py --model rice --max-iter 1000 --output-dir output/rice_synth
 
 Counterpart of tools/train_zoo.py for quber_tpu_torch, with its flags,
 defaults and recipes. Each renders --size scenes from --seed, takes one
@@ -21,15 +24,39 @@ Adam at --lr over every variable:
     and visible masks of up to 12 objects with their amodal boxes, staged
     on the device once; a float32 UOAIS-Net with FrozenBN, the ground-truth
     boxes spliced into the proposals, the detector's losses. The FrozenBN
-    tensors are parameters of the reference's step and Adam moves them too.
-Every --checkpoint-period steps the weights go to <output-dir>/ckpt in the
-JAX package's variable layout (a save_params directory), and at the end
-also to <output-dir>/<model>_int8.npz (the int8 archive the JAX package
-reads). The evaluation harness takes either:
+    tensors are parameters of the reference's step and Adam moves them too;
+  * uoisnet3d: the labelled scenes; a float32 DSN and RRN trained jointly,
+    the DSN on the reference's full objective over the XYZ cloud (weighted
+    foreground CE, offset smooth-L1, separation and mean-shift cluster
+    losses, --gms-sigma / --gms-delta), the RRN on the weighted BCE of one
+    random valid instance a step, its input mask left as it is, dilated 2
+    or eroded 2 at random; the draws (the cluster loss's samples, the
+    instance, the jitter) come from a torch.Generator seeded with --seed;
+  * cascadepsp: a pool of --size 224x224 crops, a whole-frame and an ROI
+    crop of up to three objects a scene with a boundary-perturbed input
+    mask; batches of 4 (3 crops drawn by default_rng(seed + 1), then the
+    step's own); a float32 PSPNetUOAIS with its BatchNorms in eval mode,
+    their running statistics trained with the rest (the reference's step
+    differentiates its whole variable tree); the cascade's side-output
+    BCE and the final L1 / L2 / gradient losses;
+  * rice: per scene the BGR + normalised-depth image and stacks of 16
+    plausible (ground truth, boundary-jittered) and 16 implausible
+    (fragments, merges, blobs, heavy corruption) masks; the NodeScorer on
+    the crops hypothesis_node_crops makes for the search, ranked by
+    node_scorer_loss.
+Every --checkpoint-period steps the weights go to <output-dir>/ckpt (uoisnet3d:
+ckpt_dsn and ckpt_rrn) in the JAX package's variable layout (a save_params
+directory), and at the end also to <output-dir>/<model>[_dsn|_rrn]_int8.npz
+(the int8 archive the JAX package reads). The evaluation harness takes
+either:
 
     QUBER_UCN_CKPT=output/ucn_synth/ckpt python3 run_eval_torch.py --base-model ucn ...
     QUBER_MSMFORMER_NATIVE_CKPT=output/msmformer_synth/ckpt ... --base-model msmformer
     QUBER_UOAISNET_CKPT=output/uoaisnet_synth/ckpt ... --base-model uoaisnet
+    QUBER_UOIS3D_DSN_CKPT=output/uoisnet3d_synth/ckpt_dsn \
+        QUBER_UOIS3D_RRN_CKPT=output/uoisnet3d_synth/ckpt_rrn ... --base-model uoisnet3d
+    QUBER_CASCADEPSP_CKPT=output/cascadepsp_synth/ckpt ... --refiner-model cascadepsp
+    QUBER_RICE_CKPT=output/rice_synth/ckpt ... --refiner-model rice
 
 Runs on the GPU unless --device cpu. The other models of tools/train_zoo.py
 exit with a message naming their item in ROADMAP.md.
@@ -113,8 +140,122 @@ def make_scenes(n, h, w, seed, depth_range):
     return {k: np.stack(v) for k, v in out.items()}
 
 
-# the pools' [n, H, W, 3] images; the mask stacks [n, SLOTS, H, W] stay as they are
-IMAGE_KEYS = ("rgb", "xyz", "depth", "offsets")
+def make_rice_scenes(n, h, w, seed, depth_range, slots=16):
+    """The NodeScorer's scenes, stacked: image6 (BGR / 255 and the
+    normalised depth / 255, as RICERefiner.predict encodes a frame), and
+    `slots` plausible masks (the ground truth, then boundary-jittered copies
+    that still denote their object) and `slots` implausible ones (halves of
+    every object, merges of two, random blobs, then the corruption family's
+    masks that match no object at IoU 0.5), each with a validity flag.
+    Implausible masks matching an object at IoU 0.75 are left out."""
+    import numpy as np
+
+    from quber_tpu_torch.data.perturb import (
+        mask_iou, modify_boundary, perturb_masks, random_blob, split_mask)
+    from quber_tpu_torch.data.synthetic import render_scene
+    from quber_tpu_torch.ops.preprocess import normalize_depth
+
+    rng = np.random.RandomState(seed)
+    out = {k: [] for k in ("image6", "good", "gvalid", "bad", "bvalid")}
+    for _ in range(n):
+        rgb, depth_mm, vis = render_scene(rng, h, w, depth_range=depth_range)
+        image6 = np.concatenate([
+            rgb[..., ::-1].astype(np.float32) / 255.0,
+            normalize_depth(depth_mm.astype(np.float32), depth_range[0], depth_range[1]) / 255.0,
+        ], axis=-1)
+        gt = [m.astype(np.uint8) for m in vis if m.any()]
+        good = np.zeros((slots, h, w), np.float32)
+        gvalid = np.zeros((slots,), bool)
+        i = 0
+        for m in gt[:slots]:
+            good[i], gvalid[i] = m, True
+            i += 1
+        for m in gt:
+            if i >= slots:
+                break
+            jit = modify_boundary(m, rng, (0.55, 0.9))
+            if jit.any() and mask_iou(jit, m) > 0.4:
+                good[i], gvalid[i] = jit, True
+                i += 1
+        bad = np.zeros((slots, h, w), np.float32)
+        bvalid = np.zeros((slots,), bool)
+        j = 0
+
+        def push_bad(m):
+            nonlocal j
+            if j < slots and m.any() and max((mask_iou(m, g) for g in gt), default=0.0) < 0.75:
+                bad[j], bvalid[j] = m, True
+                j += 1
+
+        for m in gt:  # fragments
+            for piece in split_mask(m, rng):
+                push_bad(piece)
+        if len(gt) >= 2:  # merges
+            for _ in range(2):
+                a, b = rng.choice(len(gt), 2, replace=False)
+                push_bad(np.maximum(gt[a], gt[b]))
+        for _ in range(2):  # hallucinated regions
+            push_bad(random_blob(rng, h, w))
+        for m in perturb_masks(np.asarray(gt), rng, target_iou=(0.3, 0.9)):
+            if max((mask_iou(m, g) for g in gt), default=0.0) < 0.5:
+                push_bad(m)
+        out["image6"].append(image6.astype(np.float32))
+        out["good"].append(good)
+        out["gvalid"].append(gvalid)
+        out["bad"].append(bad)
+        out["bvalid"].append(bvalid)
+    return {k: np.stack(v) for k, v in out.items()}
+
+
+def make_refine_crops(n, h, w, seed, depth_range, crop=224, per_scene=3):
+    """CascadePSP's crop pool: for up to `per_scene` objects of each scene
+    (those of 64 pixels or more, shuffled), a whole-frame and an ROI crop
+    (the box of the object and its boundary-perturbed mask, grown by a
+    random 15-60% margin) resized to crop x crop: "rgbd" (ImageNet-normalised
+    BGR and the normalised depth / 255), "seg" (the perturbed mask) and
+    "tgt" (the object), until `n` crops."""
+    import numpy as np
+
+    from quber_tpu_torch.data.perturb import mask_iou, modify_boundary
+    from quber_tpu_torch.data.synthetic import render_scene
+    from quber_tpu_torch.models.cascadepsp import IMAGENET_MEAN, IMAGENET_STD
+    from quber_tpu_torch.ops.preprocess import normalize_depth, resize_linear
+
+    rng = np.random.RandomState(seed)
+    out = {k: [] for k in ("rgbd", "seg", "tgt")}
+    while len(out["rgbd"]) < n:
+        rgb, depth_mm, vis = render_scene(rng, h, w, depth_range=depth_range)
+        rgbn = (rgb[..., ::-1].astype(np.float32) / 255.0 - IMAGENET_MEAN) / IMAGENET_STD
+        depth = normalize_depth(depth_mm.astype(np.float32), depth_range[0],
+                                depth_range[1])[..., :1] / 255.0
+        rgbd = np.concatenate([rgbn, depth], axis=-1)
+        objs = [m.astype(np.uint8) for m in vis if m.sum() >= 64]
+        rng.shuffle(objs)
+        for m in objs[:per_scene]:
+            pert = modify_boundary(m, rng, (0.6, 0.95))
+            if not pert.any() or mask_iou(pert, m) < 0.3:
+                pert = m
+            ys, xs = np.where(m + pert)
+            y0, y1 = ys.min(), ys.max() + 1
+            x0, x1 = xs.min(), xs.max() + 1
+            mg = rng.uniform(0.15, 0.6)
+            y0 = max(0, int(y0 - mg * (y1 - y0)))
+            y1 = min(h, int(y1 + mg * (y1 - y0)))
+            x0 = max(0, int(x0 - mg * (x1 - x0)))
+            x1 = min(w, int(x1 + mg * (x1 - x0)))
+            for view in ("global", "roi"):
+                if len(out["rgbd"]) >= n:
+                    break
+                sl = (slice(None), slice(None)) if view == "global" else (
+                    slice(y0, y1), slice(x0, x1))
+                out["rgbd"].append(resize_linear(rgbd[sl], (crop, crop)))
+                out["seg"].append(resize_linear(pert[sl].astype(np.float32), (crop, crop)))
+                out["tgt"].append(resize_linear(m[sl].astype(np.float32), (crop, crop)))
+    return {k: np.stack(v).astype(np.float32) for k, v in out.items()}
+
+
+# the pools' [n, H, W, C] images; the mask stacks [n, SLOTS, H, W] stay as they are
+IMAGE_KEYS = ("rgb", "xyz", "depth", "offsets", "image6", "rgbd")
 
 
 def stage(pool, device):
@@ -269,12 +410,198 @@ def make_uoaisnet_step(model, optimizer):
     return step
 
 
+def make_uoisnet3d(seed, lr, device):
+    """UOIS-Net-3D's float32 DSN and RRN (initialised from `seed` and
+    `seed + 1`) in one module with attributes `dsn` and `rrn`, in eval mode,
+    and one Adam over both."""
+    import torch
+    from torch import nn
+
+    from quber_tpu_torch.models.uois_net import DepthSeedingNetwork, RegionRefinementNetwork
+
+    model = nn.Module()
+    model.dsn, model.rrn = DepthSeedingNetwork(), RegionRefinementNetwork()
+    model.dsn.reset_parameters(torch.Generator().manual_seed(seed))
+    model.rrn.reset_parameters(torch.Generator().manual_seed(seed + 1))
+    model = model.to(device).eval()
+    return model, torch.optim.Adam(model.parameters(), lr=lr)
+
+
+def draw_uoisnet3d(labels, valid, generator):
+    """One uoisnet3d step's draws from `generator`: the cluster loss's
+    "samples" and "seeds" (models/uois_net.draw_cluster_indices, object
+    label 1), the RRN's "inst" (a slot, uniform over the valid ones) and its
+    "jitter" (0 none, 1 dilate 2, 2 erode 2, uniform)."""
+    import torch
+
+    from quber_tpu_torch.models.uois_net import draw_cluster_indices
+
+    samples, seeds = draw_cluster_indices(labels, generator, object_label=1)
+    dev = generator.device
+    inst = int(torch.multinomial(valid.float().to(dev), 1, generator=generator))
+    jitter = int(torch.randint(0, 3, (), generator=generator, device=dev))
+    return {"samples": samples, "seeds": seeds, "inst": inst, "jitter": jitter}
+
+
+def make_uoisnet3d_step(model, optimizer, sigma=0.02, delta=0.1, generator=None):
+    """step(pool, scene, draws=None) -> (loss, parts): one Adam update of
+    the DSN and the RRN on scene `scene` of a staged labelled pool, with the
+    draws of draw_uoisnet3d (from `generator`, a torch.Generator on the
+    model's device seeded 0 by default, unless the caller hands them
+    over)."""
+    import torch
+
+    from quber_tpu_torch.models.uois_net import dsn_train_losses, rrn_loss
+    from quber_tpu_torch.ops import morphology
+
+    dev = next(model.parameters()).device
+    if generator is None:
+        generator = torch.Generator(dev).manual_seed(0)
+
+    def step(pool, scene, draws=None):
+        labels, valid = pool["labels"][scene], pool["valid"][scene]
+        if draws is None:
+            draws = draw_uoisnet3d(labels, valid, generator)
+        gt_mask = (labels == 1 + draws["inst"]).float()
+        perturbed = (gt_mask, morphology.dilate(gt_mask[None], 2)[0],
+                     morphology.erode(gt_mask[None], 2)[0])[draws["jitter"]]
+        xyz = pool["xyz"][scene]
+        fg_logits, offsets = model.dsn(xyz[None])
+        parts = dsn_train_losses(
+            fg_logits[0].permute(1, 2, 0), offsets[0].permute(1, 2, 0), xyz.permute(1, 2, 0),
+            pool["offsets"][scene].permute(1, 2, 0), labels, pool["centers"][scene], valid,
+            draws["samples"], draws["seeds"], object_label=1, sigma=sigma, delta=delta)
+        rin = torch.cat([pool["rgb"][scene], perturbed[None]])[None]
+        parts["loss_rrn"] = rrn_loss(model.rrn(rin)[0, 0], gt_mask)
+        loss = sum(parts.values())
+        optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        optimizer.step()
+        return loss.detach(), {k: v.detach() for k, v in parts.items()}
+
+    return step
+
+
+def make_cascadepsp(seed, lr, device):
+    """A float32 PSPNetUOAIS initialised from `seed` on `device`, its
+    BatchNorms in eval mode with their running statistics made parameters
+    (the reference's step differentiates and updates them), and Adam over
+    all its parameters."""
+    import torch
+    from torch import nn
+
+    from quber_tpu_torch.models.cascadepsp import PSPNetUOAIS
+    from quber_tpu_torch.models.layers import BatchNorm
+
+    model = PSPNetUOAIS()
+    model.reset_parameters(torch.Generator().manual_seed(seed))
+    for mod in model.modules():
+        if isinstance(mod, BatchNorm):
+            for name in ("running_mean", "running_var"):
+                t = getattr(mod, name)
+                delattr(mod, name)
+                mod.register_parameter(name, nn.Parameter(t))
+    model = model.to(device).eval()
+    return model, torch.optim.Adam(model.parameters(), lr=lr)
+
+
+CASCADEPSP_BATCH = 4
+
+
+def make_cascadepsp_step(model, optimizer, size=None, seed=7):
+    """step(pool, index, batch=None) -> (loss, parts): one Adam update of
+    `model` on crops `batch` of a staged crop pool, by default 3 crops drawn
+    from numpy's default_rng(seed + 1) over `size` crops, then `index`."""
+    import numpy as np
+    import torch
+
+    from quber_tpu_torch.models.cascadepsp import cascadepsp_refine_loss
+
+    rng = np.random.default_rng(seed + 1)
+
+    def step(pool, index, batch=None):
+        if batch is None:
+            n = size or pool["seg"].shape[0]
+            batch = rng.integers(0, n, CASCADEPSP_BATCH - 1).tolist() + [index]
+        idx = torch.tensor(batch, device=pool["seg"].device)
+        rgbd = pool["rgbd"][idx]
+        seg = (pool["seg"][idx][:, None] - 0.5) / 0.5
+        parts = cascadepsp_refine_loss(model(rgbd[:, :3], rgbd[:, 3:4], seg), pool["tgt"][idx])
+        loss = sum(parts.values())
+        optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        optimizer.step()
+        return loss.detach(), {k: v.detach() for k, v in parts.items()}
+
+    return step
+
+
+def make_rice(seed, lr, device):
+    """RICE's NodeScorer initialised from `seed` on `device` and Adam over
+    its parameters."""
+    import torch
+
+    from quber_tpu_torch.models.rice import NodeScorer
+
+    model = NodeScorer()
+    model.reset_parameters(torch.Generator().manual_seed(seed))
+    model = model.to(device).eval()
+    return model, torch.optim.Adam(model.parameters(), lr=lr)
+
+
+def make_rice_step(model, optimizer):
+    """step(pool, scene) -> (loss, parts): one Adam update of the scorer on
+    the plausible and implausible masks of scene `scene` of a staged
+    make_rice_scenes pool, through the search's own crops."""
+    import torch
+
+    from quber_tpu_torch.models.rice import RICERefiner, hypothesis_node_crops, node_scorer_loss
+
+    def step(pool, scene):
+        image6 = pool["image6"][scene]
+        with torch.no_grad():
+            gc, g_ok = hypothesis_node_crops(image6, pool["good"][scene], pool["gvalid"][scene],
+                                             crop=RICERefiner.CROP)
+            bc, b_ok = hypothesis_node_crops(image6, pool["bad"][scene], pool["bvalid"][scene],
+                                             crop=RICERefiner.CROP)
+        parts = node_scorer_loss(model(gc), g_ok, model(bc), b_ok)
+        loss = sum(parts.values())
+        optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        optimizer.step()
+        return loss.detach(), {k: v.detach() for k, v in parts.items()}
+
+    return step
+
+
 RECIPES = {
     # model: (scene maker, model maker, step maker)
     "ucn": (make_labeled_scenes, make_ucn, make_ucn_step),
     "msmformer": (make_labeled_scenes, make_msmformer, make_msmformer_step),
     "uoaisnet": (make_scenes, make_uoaisnet, make_uoaisnet_step),
+    "uoisnet3d": (make_labeled_scenes, make_uoisnet3d, make_uoisnet3d_step),
+    "cascadepsp": (make_refine_crops, make_cascadepsp, make_cascadepsp_step),
+    "rice": (make_rice_scenes, make_rice, make_rice_step),
 }
+
+
+def step_options(args, device) -> dict:
+    """The step maker's options that come from the command line."""
+    import torch
+
+    if args.model == "uoisnet3d":
+        return {"sigma": args.gms_sigma, "delta": args.gms_delta,
+                "generator": torch.Generator(device).manual_seed(args.seed)}
+    if args.model == "cascadepsp":
+        return {"size": args.size, "seed": args.seed}
+    return {}
+
+
+def saved_modules(args, model) -> dict:
+    """{checkpoint directory name: the module saved there}."""
+    if args.model == "uoisnet3d":
+        return {"ckpt_dsn": model.dsn, "ckpt_rrn": model.rrn}
+    return {"ckpt": model}
 
 
 def train(args, device):
@@ -291,9 +618,11 @@ def train(args, device):
     pool_mb = sum(t.numel() * t.element_size() for t in pool.values()) / 2**20
     print(f"scene pool on {device}: {pool_mb:.1f} MiB", flush=True)
     model, optimizer = make_model(args.seed, args.lr, device)
-    train_step = make_step(model, optimizer)
-    ckpt_dir = os.path.abspath(os.path.join(args.output_dir, "ckpt"))
-    os.makedirs(ckpt_dir, exist_ok=True)
+    train_step = make_step(model, optimizer, **step_options(args, device))
+    saved = {os.path.abspath(os.path.join(args.output_dir, name)): module
+             for name, module in saved_modules(args, model).items()}
+    for ckpt_dir in saved:
+        os.makedirs(ckpt_dir, exist_ok=True)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     timing = {"t0": time.time()}
@@ -307,8 +636,11 @@ def train(args, device):
             timing["t1"] = time.time()
         return out
 
-    fit_loop(step, args.size, args,
-             lambda it: save_params(ckpt_dir, state_dict_to_jax(model), step=it))
+    def save(it):
+        for ckpt_dir, module in saved.items():
+            save_params(ckpt_dir, state_dict_to_jax(module), step=it)
+
+    fit_loop(step, args.size, args, save)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
         peak = torch.cuda.max_memory_allocated(device) / 2**30
@@ -317,8 +649,10 @@ def train(args, device):
         per_step = (time.time() - timing["t1"]) / (args.max_iter - 1)
         print(f"[timing] s_per_step={per_step:.4f} over steps 2-{args.max_iter} "
               "(checkpoints included)", flush=True)
-    save_quantized_params(os.path.join(args.output_dir, f"{args.model}_int8.npz"),
-                          state_dict_to_jax(model))
+    for ckpt_dir, module in saved.items():
+        part = os.path.basename(ckpt_dir).removeprefix("ckpt")
+        save_quantized_params(os.path.join(args.output_dir, f"{args.model}{part}_int8.npz"),
+                              state_dict_to_jax(module))
 
 
 def build_parser():
@@ -339,9 +673,9 @@ def build_parser():
     parser.add_argument("--output-dir", default="")
     parser.add_argument("--seed", type=int, default=7)
     parser.add_argument("--gms-sigma", type=float, default=0.02,
-                        help="uoisnet3d: GBMS kernel bandwidth (not ported yet)")
+                        help="uoisnet3d: GBMS kernel bandwidth (uois config)")
     parser.add_argument("--gms-delta", type=float, default=0.1,
-                        help="uoisnet3d: cluster-loss push margin (not ported yet)")
+                        help="uoisnet3d: cluster-loss push margin")
     parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                         help="cpu is for tests")
     return parser
