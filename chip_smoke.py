@@ -167,8 +167,9 @@ Phases (any failure ends the run with a non-zero exit code):
      uoaisnet (those weights through $QUBER_MSMFORMER_NATIVE_CKPT, its
      objectness bias raised so that every query is accepted and its mask
      logits moved by their median on a training scene, and
-     $QUBER_UOAISNET_CKPT at $QUBER_UOAISNET_THRESH 0, its visible-mask bias
-     raised by its median logit) and the flagship int8 refiner, per image
+     $QUBER_UOAISNET_CKPT at $QUBER_UOAISNET_THRESH 0, its RPN and box
+     deltas zeroed and its visible-mask bias raised by its median logit)
+     and the flagship int8 refiner, per image
      and streamed at B = 8, as in phase 21(c), some base mask with a pixel
      required, and each wrapper's own device seconds a frame on 4
      frames (read and inpaint excluded); (d) two frames of msmformer-zoomin
@@ -190,17 +191,19 @@ Phases (any failure ends the run with a non-zero exit code):
      CPU's state; losses rtol 1e-3, first gradients cosine >= 0.999), then
      40 of each recipe's own steps on the card (ms a step, peak memory), the
      weights saved as train_zoo_torch saves them; (c) phase 14's frames
-     through run_eval with base uoisnet3d (those weights, the foreground and
-     refinement biases moved if they segment nothing) and the flagship int8
+     through run_eval with base uoisnet3d (those weights, the DSN's offset
+     rows zeroed, the foreground and refinement biases moved to a training
+     scene's medians) and the flagship int8
      refiner per image and streamed at B = 8 (launches added to each kernel
      row as zoo_eval["uoisnet3d"]), the frames through perturbed-gt ->
      cascadepsp and perturbed-gt -> rice (greedy) with (b)'s weights, card
      against CPU on ZOO2_CPU_FRAMES frames of each (the count equal, >=
-     99.5% of the labels; uoisnet3d with its float32 models), rice CEM on
+     99.5% of the labels; uoisnet3d with its float32 models on the first
+     frame the card segments), rice CEM on
      two frames (the CPU's Gumbel noise handed to the card), each wrapper's
      device seconds a frame; (d) uoisnet3d-pretrained at its random init,
      its centre head zeroed and its object class taking every pixel, float32
-     card against CPU on one frame;
+     card against CPU on the first frame the card segments;
  25. print a JSON line of the kernels' numbers (each row with the launches
      of phases 20-24 beside those of earlier paths), the frame time,
      and as the last line {"ok": true, "device": {...}}.
@@ -308,9 +311,10 @@ BASE_TIMED_FRAMES = 4  # phase 23(c)'s wrapper-only timing
 # wrapper's 0.5 objectness on the anchor frames, and its masks pass 0.5 on
 # 0-16 of them from run to run (the steps are not deterministic on the
 # card); UOAIS-Net's detections score below 0.5 with masks that cover no
-# pixel. The evaluated copies accept every MSMFormer query and move its
-# mask logits, and UOAIS-Net's visible-mask bias, by the median logit on a
-# training scene; UOAIS-Net keeps every valid detection
+# pixel, most of their boxes clipped to no area. The evaluated copies accept
+# every MSMFormer query and move its mask logits, and UOAIS-Net's
+# visible-mask bias, by the median logit on a training scene; UOAIS-Net's
+# boxes are its anchors (deltas zeroed) and it keeps every valid detection
 # ($QUBER_UOAISNET_THRESH)
 ZOO_OBJECTNESS_SHIFT = 40.0
 ZOO_UOAISNET_THRESH = "0"
@@ -2321,8 +2325,8 @@ def zoo_training(dev, card, work):
     train_zoo_torch saves them. Returns {model: the checkpoint directory
     that 23(c) evaluates} (MSMFormer's with its objectness bias raised by
     ZOO_OBJECTNESS_SHIFT and its per-pixel largest mask logit's median
-    moved to 0, UOAIS-Net's with its visible masks' median logit moved to
-    0)."""
+    moved to 0, UOAIS-Net's with its RPN and box deltas zeroed and its
+    visible masks' median logit moved to 0)."""
     import train_zoo_torch as zoo
     from quber_tpu_torch.models.from_jax import state_dict_to_jax
     from quber_tpu_torch.train.checkpoint import save_params
@@ -2437,12 +2441,19 @@ def zoo_training(dev, card, work):
             save_params(ckpts[name], state_dict_to_jax(model), step=ZOO_CARD_STEPS)
         if name == "uoaisnet":  # the copy that 23(c) evaluates: masks that cover pixels
             with torch.no_grad():
+                # the detections' boxes as their anchors: the 40 steps leave box
+                # deltas that clip most boxes to no area (a CPU run of the same
+                # steps: every detection of the 16 anchor frames), and a mask
+                # is pasted only inside its box
+                for layer in (model.rpn.deltas, model.box_deltas):
+                    layer.weight.zero_()
+                    layer.bias.zero_()
                 out = model(pool["rgb"][0][None], pool["depth"][0][None])
                 shift = -float(out["visible_masks"][out["valid"]].median())
                 model.visible_head.predictor.bias += shift
-            print(f"uoaisnet: the evaluated copy's visible-mask bias raised by {shift:.4f}, the "
-                  f"negated median logit of its {int(out['valid'].sum())} detections on a "
-                  f"training scene")
+            print(f"uoaisnet: the evaluated copy's box deltas zeroed and its visible-mask bias "
+                  f"raised by {shift:.4f}, the negated median logit of its "
+                  f"{int(out['valid'].sum())} detections on a training scene")
             ckpts[name] = os.path.join(work, name, "eval_ckpt")
             save_params(ckpts[name], state_dict_to_jax(model), step=ZOO_CARD_STEPS)
         del model, optimizer, step, pool
@@ -2478,6 +2489,25 @@ def _wrapper_parity(label, make, keys, card):
                  [(g[2], c[2]) for g, c in zip(results["cuda"], results["cpu"])])
     if not sum(_segmented(g[0]) for g in results["cuda"]):
         raise AssertionError(f"{label}: the wrapper segmented no pixel")
+
+
+def _segmenting_frames(label, make, keys, n):
+    """The first `n` of `keys` on which the wrapper on the card keeps a mask
+    with a pixel, so that a parity check compares masks and not two empty
+    frames; fails if fewer than `n` do."""
+    base = make("cuda")
+    found = []
+    for i, key in enumerate(keys):
+        if _segmented(base.predict(*key)[0]):
+            found.append((i + 1, key))
+            if len(found) == n:
+                break
+    del base
+    print(f"{label}: anchor frames {[i for i, _ in found]} of {len(keys)} are the first with a "
+          f"mask holding a pixel on the card")
+    if len(found) < n:
+        raise AssertionError(f"{label}: the wrapper segmented no pixel on {len(keys)} frames")
+    return [key for _, key in found]
 
 
 def zoo_rest(frames, dev, card):
@@ -2766,7 +2796,7 @@ def zoo2_training(dev, card, work):
             ckpts[name][dirname] = os.path.join(work, name, dirname)
             save_params(ckpts[name][dirname], state_dict_to_jax(module), step=ZOO_CARD_STEPS)
         if name == "uoisnet3d":
-            ckpts[name] = _uoisnet3d_eval_copy(model, pool, ckpts[name], work)
+            ckpts[name] = _uoisnet3d_eval_copy(model, pool, work)
         if name == "cascadepsp":
             ckpts[name] = _cascadepsp_eval_copy(model, pool, ckpts[name], work)
         del model, optimizer, step, pool
@@ -2774,12 +2804,15 @@ def zoo2_training(dev, card, work):
     return ckpts
 
 
-def _uoisnet3d_eval_copy(model, pool, ckpts, work):
-    """The weights 24(c) evaluates: (b)'s, unless the wrapper (bfloat16, as
-    it runs) keeps no pixel on a training scene; then a copy with the DSN's
-    offset rows zeroed (the votes are the cloud itself), its foreground bias
-    moved by the median margin of the scene's pixels and the RRN's bias by
-    the median refinement logit inside the largest closed mask."""
+def _uoisnet3d_eval_copy(model, pool, work):
+    """The weights 24(c) evaluates: (b)'s with the DSN's offset rows zeroed
+    (the votes are the cloud itself), its foreground bias moved by the
+    median margin of a training scene's pixels and the RRN's bias by the
+    median refinement logit inside the largest closed mask. After 40 steps
+    the DSN's foreground lies at the edge of its argmax: the steps are not
+    deterministic on the card, and from run to run the wrapper kept one
+    instance or none on the first anchor frames, float32 and bfloat16
+    apart."""
     from quber_tpu_torch.models.from_jax import state_dict_to_jax
     from quber_tpu_torch.models.uois_net import UOISNet3DBaseModel, open_close
     from quber_tpu_torch.ops.meanshift import cluster_points_euclidean
@@ -2793,8 +2826,6 @@ def _uoisnet3d_eval_copy(model, pool, ckpts, work):
     n, pixels = segments(model.dsn, model.rrn)
     print(f"uoisnet3d after {ZOO_CARD_STEPS} steps on a training scene: {n} instances, "
           f"{pixels} refined pixels")
-    if pixels:
-        return ckpts
     with torch.no_grad():
         xyz = pool["xyz"][0]
         head = model.dsn.unet.head
@@ -2917,7 +2948,8 @@ def zoo2_refiners(root, frames, ckpts, card):
 def zoo2_bases(frames, ckpts, card):
     """Phase 24(c)'s uoisnet3d (its float32 models) and 24(d)'s
     uoisnet3d-pretrained at its random init (centre head zeroed, object
-    class taking every pixel, float32), card against CPU."""
+    class taking every pixel, float32), card against CPU on the first
+    anchor frames the card segments."""
     from quber_tpu_torch.models.layers import set_compute_dtype
     from quber_tpu_torch.models.uois_net import UOISNet3DBaseModel
     from quber_tpu_torch.models.uois_net_pretrained import (
@@ -2933,8 +2965,9 @@ def zoo2_bases(frames, ckpts, card):
         return base
 
     keys = list(frames)
-    _wrapper_parity("uoisnet3d, phase 24(b)'s weights, float32", native,
-                    keys[:ZOO2_BASE_CPU_FRAMES], card)
+    label = "uoisnet3d, phase 24(b)'s weights, float32"
+    _wrapper_parity(label, native,
+                    _segmenting_frames(label, native, keys, ZOO2_BASE_CPU_FRAMES), card)
     twin = UOISNet3DPretrainedBaseModel(device="cpu")
     sd = {k: v.clone() for k, v in twin.dsn.state_dict().items()}
     sd["cd_module.weight"].zero_()
@@ -2949,8 +2982,9 @@ def zoo2_bases(frames, ckpts, card):
         set_dtype(base.rrn, torch.float32)
         return base
 
-    _wrapper_parity("uoisnet3d-pretrained, random init, centre head zeroed, float32",
-                    pretrained, keys[:ZOO2_BASE_CPU_FRAMES], card)
+    label = "uoisnet3d-pretrained, random init, centre head zeroed, float32"
+    _wrapper_parity(label, pretrained,
+                    _segmenting_frames(label, pretrained, keys, ZOO2_BASE_CPU_FRAMES), card)
 
 
 def zoo2_phase(root, params, frames, dev, card, work):
