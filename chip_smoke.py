@@ -204,8 +204,28 @@ Phases (any failure ends the run with a non-zero exit code):
      device seconds a frame; (d) uoisnet3d-pretrained at its random init,
      its centre head zeroed and its object class taking every pixel, float32
      card against CPU on the first frame the card segments;
- 25. print a JSON line of the kernels' numbers (each row with the launches
-     of phases 20-24 beside those of earlier paths), the frame time,
+ 25. SAM-HQ: (a) hq-sam-pretrained's ViT-H at 1024 (one encode and a
+     frame's 16 mask-prompt decodes) and ViT-B at 1024 (the automatic
+     generator's 64 point decodes, multimask, and a box decode), from seeded
+     inits on the first anchor frame, float32 (TF32 off) on the card
+     against the CPU (every output within SAM_RTOL of max |CPU|; a TF32
+     forward printed beside it), then bfloat16 on the card (finite, the
+     distance to float32 printed); (b) train_zoo_torch's samhq steps card
+     against CPU (the second from the CPU's state; losses rtol 1e-3, first
+     gradients cosine >= 0.999), then 40 timed (ms a step, peak memory),
+     the weights saved with arch.json; (c) phase 14's frames through
+     perturbed-gt -> sam, hq-sam ((b)'s weights through $QUBER_SAMHQ_CKPT)
+     and hq-sam-pretrained (the ViT-H in bfloat16), each built by its name,
+     some refined mask with a pixel; base sam and sam-depth (seeded inits,
+     iou_head's bias raised by SAM_IOU_SHIFT) -> the flagship per image and
+     streamed at B = 8 (launches added to each kernel row as
+     zoo_eval["sam"] and ["sam-depth"]); each wrapper's device seconds a
+     frame; (d) the float32 ViT-B refiners (sam, hq-sam) and the automatic
+     generator (sam, sam-depth, bias raised in both copies) card against CPU
+     on the first anchor frame the card segments (the count equal, >=
+     SAM_AGREEMENT of the labels);
+ 26. print a JSON line of the kernels' numbers (each row with the launches
+     of phases 20-25 beside those of earlier paths), the frame time,
      and as the last line {"ok": true, "device": {...}}.
 Needs CUDA; it has no CPU mode.
 """
@@ -333,6 +353,23 @@ ZOO2_CROPS = 8  # cascadepsp's pool in 24(b): 4 scenes' whole-frame and ROI crop
 ZOO2_CPU_CROP = 112  # the crop side of 24(b)'s cascadepsp steps against the CPU
 ZOO2_CPU_FRAMES = 2  # 24(c)'s refiners card against CPU
 ZOO2_BASE_CPU_FRAMES = 1  # 24(c)'s uoisnet3d and 24(d)'s twin card against CPU
+SAM_SEED = 13  # phase 25(a)'s inits
+# phase 25(a)'s float32 forwards, card against CPU (TF32 off): max |card -
+# CPU| over max |CPU| of each output; the ViT-H read 2.9e-6 (H100, one run),
+# and a TF32 forward is printed beside it
+SAM_RTOL = 1e-4
+SAM_PROMPTS = 16  # the refiner's mask-prompt slots
+SAM_GRID = 8  # the automatic generator's point grid
+# phase 25(d): the float32 ViT-B wrappers, card against CPU, on the first
+# frames that hold a mask, label agreement
+SAM_AGREEMENT = 0.999
+SAM_PARITY_FRAMES = 1
+# phase 25(c)-(d): at its seeded random init the automatic generator
+# predicts IoUs of 0.20-0.52 (two synthetic frames on the CPU), below its
+# 0.5 threshold on nearly every point, and keeps 0-1 masks a frame; the
+# evaluated and compared copies (both alike) have iou_head's last bias
+# raised by this, so that they segment
+SAM_IOU_SHIFT = 0.5
 # H100 SXM data sheet: HBM3 rate and fp32 rate outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
@@ -1848,17 +1885,18 @@ def ucn_clustering(state, frames, card):
         raise AssertionError("UCN: no frame gave an instance")
 
 
-def base_evaluation(base, env, ckpt, root, params, frames, card, label):
+def base_evaluation(base, env, ckpt, root, params, frames, card, label, model=None):
     """Phase 14's frames through run_eval with a learned base model (its
-    weights through $`env` = `ckpt`) and the flagship refiner, per image and
-    streamed: one single-frame launch of each kernel a frame per image, one
-    batched launch a batch streamed, the base masks equal between the
-    passes, the refined ones as in phase 14. Returns the launches of both
-    passes."""
+    weights through $`env` = `ckpt`, or `model`, the wrapper built for
+    `base`) and the flagship refiner, per image and streamed: one
+    single-frame launch of each kernel a frame per image, one batched
+    launch a batch streamed, the base masks equal between the passes, the
+    refined ones as in phase 14. Returns the launches of both passes."""
     from quber_tpu_torch.evaluation.harness import PRINT_KEYS, masks_to_label_image, run_eval
     from quber_tpu_torch.ops import kernels
 
-    os.environ[env] = ckpt
+    if env:
+        os.environ[env] = ckpt
     refiner = _Recording(_eval_refiner(None, params, frames, replay=True))
     passes = {}
     for name, batch in (("per-image", 0), ("streamed", BATCH)):
@@ -1866,7 +1904,7 @@ def base_evaluation(base, env, ckpt, root, params, frames, card, label):
         refiner.initial, refiner.masks = [], []
         kernels.reset_launch_counts()
         t0 = time.perf_counter()
-        res = run_eval(base_model=base, refiner_model=refiner, test_dataset="OSD",
+        res = run_eval(base_model=model or base, refiner_model=refiner, test_dataset="OSD",
                        dataset_path=root, refine_batch=batch, device="cuda",
                        csv_path=os.path.join(os.path.dirname(root), f"eval_{base}", name,
                                              "eval.csv"))
@@ -1914,13 +1952,14 @@ def base_evaluation(base, env, ckpt, root, params, frames, card, label):
     return launches1, launches2
 
 
-def base_device_seconds(base, frames, card):
+def base_device_seconds(base, frames, card, model=None):
     """The wrapper's own seconds a frame (its device work and the copy of
     its masks to the host, not the host's reading and inpainting) on the
-    first BASE_TIMED_FRAMES frames, after one untimed frame."""
+    first BASE_TIMED_FRAMES frames, after one untimed frame; `model` the
+    wrapper built for `base` (else built by name)."""
     from quber_tpu_torch.evaluation.base_models import build_base_model
 
-    model = build_base_model(base, "OSD", device="cuda")
+    model = model or build_base_model(base, "OSD", device="cuda")
     keys = list(frames)[:BASE_TIMED_FRAMES]
     model.predict(*keys[0])
     seconds = [model.predict(*key)[2] for key in keys]
@@ -2697,18 +2736,19 @@ def _zoo2_recipe(name, seed, device):
     return model, optimizer, make_step(model, optimizer, **opts)
 
 
-def zoo2_training(dev, card, work):
-    """Phase 24(b): train_zoo_torch's uoisnet3d, cascadepsp and rice steps,
-    card against CPU from the same init with the draws handed over (the
-    second step from the CPU's state), then 40 of each recipe's own steps
-    on the card, timed, the weights saved as train_zoo_torch saves them.
-    Returns {recipe: {checkpoint directory name: path}}."""
+def zoo2_training(dev, card, work, names=("uoisnet3d", "cascadepsp", "rice")):
+    """Phase 24(b) (and 25(b), `names` ("samhq",)): train_zoo_torch's
+    recipes' steps, card against CPU from the same init with the draws
+    handed over (the second step from the CPU's state), then 40 of each
+    recipe's own steps on the card, timed, the weights saved as
+    train_zoo_torch saves them. Returns {recipe: {checkpoint directory
+    name: path}}."""
     import train_zoo_torch as zoo
     from quber_tpu_torch.models.from_jax import state_dict_to_jax
     from quber_tpu_torch.train.checkpoint import save_params
 
     ckpts = {}
-    for name in ("uoisnet3d", "cascadepsp", "rice"):
+    for name in names:
         make_pool = zoo.RECIPES[name][0]
         n_pool = ZOO2_CROPS if name == "cascadepsp" else ZOO_POOL
         t0 = time.perf_counter()
@@ -2874,20 +2914,26 @@ def _cascadepsp_eval_copy(model, pool, ckpts, work):
     return out
 
 
-class _Replaying:
-    """A zoo refiner for run_eval that reads its frames from `frames` (as
-    phase 14 read them) and records each frame's initial and refined masks
-    and its own seconds."""
+class _Timed:
+    """A refiner for run_eval that records each frame's key, initial and
+    refined masks and the wrapper's own seconds."""
 
-    def __init__(self, inner, frames):
-        self.inner, self.frames = inner, frames
-        inner._load = lambda rgb_path, depth_path: frames[rgb_path, depth_path]
-        self.records = []
+    def __init__(self, inner):
+        self.inner, self.records = inner, []
 
     def predict(self, rgb_path, depth_path, initial_masks, fg_mask, **kw):
         out = self.inner.predict(rgb_path, depth_path, initial_masks, fg_mask, **kw)
         self.records.append(((rgb_path, depth_path), initial_masks, out[0], out[2]))
         return out
+
+
+class _Replaying(_Timed):
+    """A zoo refiner for run_eval (_Timed) that reads its frames from
+    `frames` (as phase 14 read them)."""
+
+    def __init__(self, inner, frames):
+        super().__init__(inner)
+        inner._load = lambda rgb_path, depth_path: frames[rgb_path, depth_path]
 
 
 def zoo2_refiners(root, frames, ckpts, card):
@@ -3003,6 +3049,251 @@ def zoo2_phase(root, params, frames, dev, card, work):
     return launches
 
 
+def _sam_prompts(masks, q, n=SAM_PROMPTS):
+    """`n` mask prompts [n, q, q] (the refiner's encoding, * 20 - 10) from a
+    frame's initial masks, repeated to fill the slots."""
+    from quber_tpu_torch.ops.preprocess import resize_nearest
+
+    out = np.zeros((n, q, q), np.float32)
+    for i in range(n):
+        m = np.asarray(masks[i % len(masks)]).astype(np.uint8)
+        out[i] = resize_nearest(m, (q, q)) * 20.0 - 10.0
+    return torch.from_numpy(out)
+
+
+def _sam_card_against_cpu(label, model, run, dev, card):
+    """`run(model, device)` -> {output: tensor} on the CPU, then on the card
+    (the model moved there), float32 with TF32 off: each output's max |card
+    - CPU| over max |CPU| within SAM_RTOL; then in bfloat16 on the card,
+    its mean distance from float32 printed (not gated). Returns the card's
+    float32 outputs."""
+    from quber_tpu_torch.models.layers import set_compute_dtype
+
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        cpu = run(model, torch.device("cpu"))
+    cpu_s = time.perf_counter() - t0
+    model.to(dev)
+    with torch.no_grad():
+        run(model, dev)  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = run(model, dev)
+        torch.cuda.synchronize()
+        card_ms = (time.perf_counter() - t0) * 1e3
+    rel, _ = _forward_gaps(got, cpu)
+    print(f"{label} float32, card against CPU: max |card - CPU| over max |CPU| "
+          f"{({k: float(f'{r:.3g}') for k, r in rel.items()})} (tolerance {SAM_RTOL}); CPU "
+          f"{cpu_s:.2f} s, card {card_ms:.1f} ms (TF32 off)")
+    if not all(bool(torch.isfinite(v).all()) for v in got.values()) or \
+            max(rel.values()) > SAM_RTOL:
+        raise AssertionError(f"{label}: the card and the CPU disagree")
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    with torch.no_grad():
+        tf32, _ = _forward_gaps(run(model, dev), cpu)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    print(f"{label} with TF32 on (a control, not gated): max |card - CPU| over max |CPU| "
+          f"{max(tf32.values()):.3g}")
+    set_compute_dtype(model, torch.bfloat16)
+    with torch.no_grad():
+        run(model, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bf16 = run(model, dev)
+        torch.cuda.synchronize()
+        bf16_ms = (time.perf_counter() - t0) * 1e3
+    if not all(bool(torch.isfinite(v).all()) for v in bf16.values()):
+        raise AssertionError(f"{label}: a bfloat16 output on the card is not finite")
+    dist = {k: float(f"{float((v.float() - got[k]).abs().mean() / got[k].abs().mean()):.3g}")
+            for k, v in bf16.items()}
+    print(f"{label} bfloat16 on the card: finite, {bf16_ms:.1f} ms; mean |bf16 - float32| over "
+          f"mean |float32| {dist} on {card}")
+    return got
+
+
+def sam_forwards(frames, initial, dev, card):
+    """Phase 25(a): hq-sam-pretrained's ViT-H at 1024 (one encode, one
+    frame's 16 mask-prompt decodes) and ViT-B at 1024 (the automatic
+    generator's 64 point decodes, multimask, and one box decode), from
+    seeded inits, on the first anchor frame."""
+    from quber_tpu_torch.models.sam_hq import SAMHQ
+    from quber_tpu_torch.models.sam_refiner import sam_input
+
+    key = next(iter(frames))
+    image = torch.from_numpy(sam_input(frames[key][0], 1024))[None]
+    prompts = _sam_prompts(initial[0], 256)[..., None]
+
+    def refine(model, device):
+        e, i = model.encode(image.to(device))
+        masks, iou, all_masks = model.decode(e, i, prompts.to(device), False, True)
+        return {"embed": e, "interm": i, "masks": masks, "iou": iou, "all_masks": all_masks}
+
+    t0 = time.perf_counter()
+    vit_h = SAMHQ.preset("vit_h").eval()
+    vit_h.reset_parameters(torch.Generator().manual_seed(SAM_SEED))
+    n_params = sum(p.numel() for p in vit_h.parameters())
+    print(f"ViT-H SAM-HQ ({n_params / 1e6:.1f}M parameters) built and initialised on the host in "
+          f"{time.perf_counter() - t0:.1f} s")
+    _sam_card_against_cpu(f"hq-sam-pretrained ViT-H at 1024, encode + {SAM_PROMPTS} mask "
+                          "decodes", vit_h, refine, dev, card)
+    del vit_h
+    torch.cuda.empty_cache()
+
+    g = SAM_GRID
+    pts = (np.stack(np.meshgrid(np.arange(g), np.arange(g)), -1).reshape(-1, 2)
+           .astype(np.float32) + 0.5) / g * 1024
+    ys, xs = np.nonzero(np.asarray(initial[0][0]))
+    box = torch.tensor([[xs.min() * 1024 / W, ys.min() * 1024 / H,
+                         (xs.max() + 1) * 1024 / W, (ys.max() + 1) * 1024 / H]],
+                       dtype=torch.float32)
+
+    def decode(model, device):
+        e, i = model.encode(image.to(device))
+        out = {"embed": e, "interm": i}
+        masks, iou, _ = model.decode_points(e, i, torch.from_numpy(pts)[:, None].to(device),
+                                            torch.ones(g * g, 1, dtype=torch.int32,
+                                                       device=device), True)
+        out.update(point_masks=masks, point_iou=iou)
+        masks, iou, _ = model.decode_box(e, i, box.to(device), True)
+        return dict(out, box_masks=masks, box_iou=iou)
+
+    vit_b = SAMHQ().eval()
+    vit_b.reset_parameters(torch.Generator().manual_seed(SAM_SEED))
+    _sam_card_against_cpu(f"ViT-B at 1024, encode + {g * g} point decodes (multimask) + a "
+                          "box decode", vit_b, decode, dev, card)
+    del vit_b
+    torch.cuda.empty_cache()
+
+
+def sam_refiners(root, ckpt, card):
+    """Phase 25(c)'s refiners: phase 14's frames through perturbed-gt ->
+    sam, hq-sam ((b)'s weights through $QUBER_SAMHQ_CKPT and arch.json) and
+    hq-sam-pretrained (ViT-H, bfloat16), each built by its name."""
+    from quber_tpu_torch.evaluation.harness import run_eval
+    from quber_tpu_torch.evaluation.refiner_models import build_refiner_model
+
+    os.environ["QUBER_SAMHQ_CKPT"] = ckpt
+    for name in ("sam", "hq-sam", "hq-sam-pretrained"):
+        t0 = time.perf_counter()
+        refiner = _Timed(build_refiner_model(name, "OSD", device="cuda"))
+        built = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res = run_eval(base_model="perturbed-gt", refiner_model=refiner, test_dataset="OSD",
+                       dataset_path=root, device="cuda",
+                       csv_path=os.path.join(os.path.dirname(root), f"eval_{name}", "eval.csv"))
+        wall = time.perf_counter() - t0
+        means = {s: {k: round(res[s][k], 6) for k in ("Objects F-measure", "Boundary F-measure")}
+                 for s in ("initial", "refined")}
+        seconds = [r[3] for r in refiner.records]
+        model = refiner.inner.model
+        print(f"perturbed-gt -> {name} ({model.image_encoder.patch_embed.out_channels} wide, "
+              f"{model.image_encoder.depth} blocks at {refiner.inner.img_size}, "
+              f"{model.mask_decoder.up_0.compute_dtype}), {len(seconds)} frames: masks per frame "
+              f"{[len(r[2]) for r in refiner.records]} (with a pixel "
+              f"{[_segmented(r[2]) for r in refiner.records]}), means {means}; the wrapper's "
+              f"device seconds a frame median {statistics.median(seconds[1:]):.4f} (frame 1: "
+              f"{seconds[0]:.3f}); built in {built:.1f} s, pass wall {wall:.2f} s on {card}")
+        if len(seconds) != EVAL_FRAMES:
+            raise AssertionError(f"{name}: run_eval did not refine every frame")
+        if not sum(_segmented(r[2]) for r in refiner.records):
+            raise AssertionError(f"{name}: no refined mask holds a pixel")
+        del refiner, model
+        torch.cuda.empty_cache()
+    del os.environ["QUBER_SAMHQ_CKPT"]
+
+
+def _sam_base(name, device):
+    """The `sam` / `sam-depth` wrapper built by its name, iou_head's last
+    bias raised by SAM_IOU_SHIFT."""
+    from quber_tpu_torch.evaluation.base_models import build_base_model
+
+    base = build_base_model(name, "OSD", device=device)
+    with torch.no_grad():
+        base.model.mask_decoder.iou_head.layers_2.bias += SAM_IOU_SHIFT
+    return base
+
+
+def sam_bases(root, params, frames, card):
+    """Phase 25(c)'s bases: phase 14's frames through run_eval with base
+    sam and sam-depth (their seeded inits, IoU bias raised) and the flagship
+    refiner, per image and streamed. Returns {base: the launches of both
+    passes}."""
+    launches = {}
+    for name in ("sam", "sam-depth"):
+        base = _sam_base(name, "cuda")
+        launches[name] = base_evaluation(
+            name, None, None, root, params, frames, card,
+            f"{name} (seeded init, iou_head bias +{SAM_IOU_SHIFT})", model=base)
+        base_device_seconds(name, frames, card, model=base)
+        del base
+        torch.cuda.empty_cache()
+    return launches
+
+
+def _same_labels(label, got, want, card):
+    from quber_tpu_torch.evaluation.harness import masks_to_label_image
+
+    agree = _label_agreement(masks_to_label_image(got, np.zeros((H, W), np.int32)),
+                             masks_to_label_image(want, np.zeros((H, W), np.int32)))
+    print(f"{label}: masks card {len(got)} CPU {len(want)} (with a pixel {_segmented(got)} / "
+          f"{_segmented(want)}), label agreement {agree:.6f} (need >= {SAM_AGREEMENT}) on {card}")
+    if len(got) != len(want) or agree < SAM_AGREEMENT or not _segmented(want):
+        raise AssertionError(f"{label}: the card and the CPU disagree")
+
+
+def sam_parity(frames, initial, card):
+    """Phase 25(d): the float32 ViT-B refiners (sam, hq-sam at their seeded
+    inits) and the automatic generator (sam, sam-depth, IoU bias raised),
+    card against CPU on the first anchor frames on which the card keeps a
+    mask with a pixel."""
+    from quber_tpu_torch.models.layers import set_compute_dtype
+    from quber_tpu_torch.models.sam_refiner import SAMHQRefiner
+
+    keys = list(frames)
+
+    def compare(label, make, call):
+        models = {d: make(d) for d in ("cuda", "cpu")}
+        for m in models.values():
+            set_compute_dtype(m.model, torch.float32)
+        found = 0
+        for i, key in enumerate(keys):
+            got = call(models["cuda"], i, key)
+            if not _segmented(got):
+                continue
+            _same_labels(f"{label}, anchor frame {i + 1}", got, call(models["cpu"], i, key), card)
+            found += 1
+            if found == SAM_PARITY_FRAMES:
+                break
+        if not found:
+            raise AssertionError(f"{label}: the card kept no mask with a pixel")
+        del models
+        torch.cuda.empty_cache()
+
+    for name, hq in (("sam", False), ("hq-sam", True)):
+        compare(f"{name} refiner (ViT-B at 1024, seeded init, float32)",
+                lambda d, hq=hq: SAMHQRefiner(hq=hq, device=d),
+                lambda m, i, key: m.predict(*key, initial[i], None)[0])
+    for name in ("sam", "sam-depth"):
+        compare(f"{name} base (seeded init, iou_head bias +{SAM_IOU_SHIFT}, float32)",
+                lambda d, name=name: _sam_base(name, d),
+                lambda m, i, key: m.predict(*key)[0])
+
+
+def sam_phase(root, params, frames, initial, dev, card, work):
+    """Phase 25: SAM-HQ on the card. Returns the launches of 25(c)'s base
+    evaluations."""
+    import train_zoo_torch as zoo
+
+    sam_forwards(frames, initial, dev, card)
+    ckpt = zoo2_training(dev, card, work, names=("samhq",))["samhq"]["ckpt"]
+    with open(os.path.join(os.path.dirname(ckpt), "arch.json"), "w") as f:
+        json.dump(zoo.SAMHQ_SYNTH_ARCH, f)
+    sam_refiners(root, ckpt, card)
+    launches = sam_bases(root, params, frames, card)
+    sam_parity(frames, initial, card)
+    return launches
+
+
 def _elapsed(what):
     print(f"[{time.perf_counter() - _T0:.1f} s] {what} done", flush=True)
 
@@ -3094,6 +3385,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         zoo_launches["uoisnet3d"] = zoo2_phase(root, params, frames, dev, card, work)
         _elapsed("phase 24")
+        torch.cuda.empty_cache()
+        zoo_launches.update(sam_phase(root, params, frames, initial, dev, card, work))
+        _elapsed("phase 25")
     # the serving shapes' entries: launches on the single-frame CLI path
     # (predict, K = 24) and on the benchmark's batches of 16
     for row in rows:
@@ -3117,8 +3411,8 @@ def main() -> int:
         # the launches of the device-target steps from files (phase 22(b))
         row["file_train"] = {"launches": file_launches[name],
                              "path": f"{FILE_STEPS} device-target steps from UOAIS-Sim files"}
-        # the MSMFormer / UOAIS-Net / UOIS-Net-3D -> refiner evaluations
-        # (phases 23(c) and 24(c))
+        # the MSMFormer / UOAIS-Net / UOIS-Net-3D / SAM -> refiner
+        # evaluations (phases 23(c), 24(c) and 25(c))
         row["zoo_eval"] = {base: {"launches_per_image": n[0][name],
                                   "launches_streamed": n[1][name],
                                   "path": f"run_eval, base {base}, {EVAL_FRAMES} frames"}

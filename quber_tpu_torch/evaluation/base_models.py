@@ -23,9 +23,11 @@ checkpoint, as in the reference. The reference's released checkpoints:
   * `uoisnet3d-pretrained`: $QUBER_UOIS_DSN_CKPT and $QUBER_UOIS_RRN_CKPT
     (each a random init without it);
 each a reference .pth (read through models/import_zoo) or a save_params
-directory of the port's state dict. The other learned base segmenters of
-the zoo (SAM and the open-vocabulary ones) are not ported yet: their names
-raise NotImplementedError (ROADMAP.md, Queue 1 item 14).
+directory of the port's state dict. `sam` and `sam-depth` are SAM's
+automatic mask generator (models/sam_refiner) on the RGB or on the
+normalised depth, at a seeded random init. The open-vocabulary base
+segmenters are not ported yet: their names raise NotImplementedError
+(ROADMAP.md, Queue 1 item 14).
 """
 
 from __future__ import annotations
@@ -39,7 +41,7 @@ from quber_tpu_torch.data.perturb import perturb_masks
 from quber_tpu_torch.evaluation.datasets import BG_LABELS, EVAL_H, EVAL_W
 from quber_tpu_torch.ops.preprocess import resize_nearest
 
-ZOO_BASE_MODELS = ("sam", "sam-depth", "detic", "grounded-sam")
+ZOO_BASE_MODELS = ("detic", "grounded-sam")
 
 
 class Empty:
@@ -226,6 +228,11 @@ def build_base_model(name: str, dataset: str, npy_folder: str = "", device="cuda
             _reference_weights_or_none("QUBER_UOIS_RRN_CKPT", "output/uois_rrn/ckpt",
                                        import_uois_rrn),
             dataset=dataset, device=device)
+    if name in ("sam", "sam-depth"):
+        from quber_tpu_torch.models.sam_refiner import SAMAutomaticBaseModel
+
+        return SAMAutomaticBaseModel(dataset=dataset, depth_input=name == "sam-depth",
+                                     device=device)
     if name in ZOO_BASE_MODELS:
         raise NotImplementedError(
             f"base model {name} is not ported yet (ROADMAP.md, Queue 1 item 14)")
@@ -233,4 +240,4 @@ def build_base_model(name: str, dataset: str, npy_folder: str = "", device="cuda
         f"base model {name}; available: gt, empty, npy, perturbed-gt, "
         "perturbed-gt-structural, ucn, ucn-zoomin, msmformer, msmformer-zoomin, "
         "msmformer-pretrained, uoaisnet, uoaisnet-amodal, uoaisnet-pretrained, uoisnet3d, "
-        "uoisnet3d-pretrained")
+        "uoisnet3d-pretrained, sam, sam-depth")

@@ -21,8 +21,12 @@ The zoo refiners: `cascadepsp` / `cascadepsp-rgbd` (models/cascadepsp,
 weights from `params` or $QUBER_CASCADEPSP_CKPT, a random init without
 either) and `rice` (models/rice, the NodeScorer from `params` or
 $QUBER_RICE_CKPT, a random init without a checkpoint there; the search
-$QUBER_RICE_SEARCH, greedy by default, or cem). SAM / HQ-SAM are not ported
-yet: their names raise NotImplementedError (ROADMAP.md, Queue 1 item 14).
+$QUBER_RICE_SEARCH, greedy by default, or cem), and SAM (models/sam_refiner):
+`sam` (SAM's token-0 mask) and `hq-sam` (the HQ mask) at ViT-B width and
+1024x1024, `hq-sam-pretrained` the reference's ViT-H; a seeded random init
+unless `params` are given. `hq-sam` with $QUBER_SAMHQ_CKPT (a checkpoint
+directory of train_zoo_torch.py --model samhq) rebuilds the trained
+architecture from the arch.json beside it.
 """
 
 from __future__ import annotations
@@ -36,8 +40,6 @@ import numpy as np
 from quber_tpu_torch.data import png
 from quber_tpu_torch.evaluation.datasets import EVAL_H, EVAL_W
 from quber_tpu_torch.ops.preprocess import load_rgbd, resize_linear, resize_nearest
-
-ZOO_REFINERS = ("sam", "hq-sam", "hq-sam-pretrained")
 
 
 class LoadNpyRefinerModel:
@@ -220,11 +222,24 @@ def build_refiner_model(name: str, dataset: str, config=None, params=None,
         # a damaging operation along)
         return RICERefiner(params=params, dataset=dataset, device=device,
                            search=os.environ.get("QUBER_RICE_SEARCH", "greedy"))
-    if name in ZOO_REFINERS:
-        raise NotImplementedError(
-            f"refiner model {name} is not ported yet (ROADMAP.md, Queue 1 item 14)")
+    if name in ("sam", "hq-sam", "hq-sam-pretrained"):
+        from quber_tpu_torch.models.sam_refiner import SAMHQRefiner
+
+        ckpt = os.environ.get("QUBER_SAMHQ_CKPT", "")
+        if name == "hq-sam" and params is None and ckpt:
+            import json
+
+            from quber_tpu_torch.train.checkpoint import load_eval_params
+
+            with open(os.path.join(os.path.dirname(os.path.abspath(ckpt)), "arch.json")) as f:
+                arch = json.load(f)
+            arch["global_blocks"] = tuple(arch["global_blocks"])
+            return SAMHQRefiner(params=load_eval_params(ckpt), dataset=dataset, hq=True,
+                                device=device, **arch)
+        return SAMHQRefiner(params=params, dataset=dataset, hq=name != "sam", device=device,
+                            preset="vit_h" if name == "hq-sam-pretrained" else None)
     if name is None or name in ("none", "save"):
         return None
     raise NotImplementedError(
         f"refiner model {name}; available: maskrefiner, maskrefiner-nofilter, "
-        "identity, npy, cascadepsp, cascadepsp-rgbd, rice")
+        "identity, npy, cascadepsp, cascadepsp-rgbd, rice, sam, hq-sam, hq-sam-pretrained")

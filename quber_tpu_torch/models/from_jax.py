@@ -1,8 +1,8 @@
 """Carry a flax variable tree across to a torch state dict (the MaskRefiner
 in every configuration, the Panoptic-DeepLab baseline, the UCN embedding
 net, the foreground nets CGNet and LMFFNet, MSMFormer and UOAIS-Net,
-UOIS-Net-3D's DSN and RRN in both variants, CascadePSP's PSPNetUOAIS and
-RICE's NodeScorer).
+UOIS-Net-3D's DSN and RRN in both variants, CascadePSP's PSPNetUOAIS,
+RICE's NodeScorer and SAM-HQ).
 
 The port's modules are named after the flax scopes, so the map is a rename:
   * `<scope>/kernel` -> `<scope>.weight`, conv kernels HWIO -> OIHW and
@@ -20,8 +20,9 @@ The port's modules are named after the flax scopes, so the map is a rename:
     `key`, `value` [dim, heads, head_dim], `out` [heads, head_dim, dim]) and
     biases -> the Dense layers of layers.MultiHeadDotProductAttention over
     the flattened heads;
-  * a bare parameter (MSMFormer's `query_embed`) -> the module's parameter
-    of that name.
+  * a bare parameter (MSMFormer's `query_embed`; SAM-HQ's position, point
+    and token embeddings and relative positions) -> the module's parameter
+    of that name, and SAM-HQ's LayerNorm2d `weight` keeps its name.
 `state_dict_to_jax` is the inverse (it reads the norm scopes off the module
 types), and `load_optax_adam_state` carries Adam moments kept in the flax
 layout into a torch optimizer.
@@ -35,6 +36,7 @@ from torch import nn
 
 from quber_tpu_torch.models.layers import (
     BatchNorm, FrozenBatchNorm, GroupNorm, LayerNorm, MultiHeadDotProductAttention)
+from quber_tpu_torch.models.sam_hq import LayerNorm2d, TokenLayerNorm
 from quber_tpu_torch.models.ucn import RunningBatchNorm
 
 _NORM_SCOPES = {"GroupNorm_0", "BatchNorm_0", "FrozenBatchNorm_0"}
@@ -52,6 +54,10 @@ _LEAF = {
     "alpha": "weight",  # a PReLU's per-channel slope
     "prelu_alpha": "prelu_alpha",
     "query_embed": "query_embed",
+    "weight": "weight",  # SAM-HQ's LayerNorm2d
+    **{name: name for name in (  # SAM-HQ's bare parameters
+        "pos_embed", "rel_pos_h", "rel_pos_w", "pe_gaussian", "point_embeddings",
+        "not_a_point_embed", "no_mask_embed", "iou_token", "mask_tokens", "hf_token")},
 }
 
 
@@ -116,6 +122,8 @@ _TO_JAX = {
     RunningBatchNorm: ("BatchNorm_0", {"weight": "scale", "bias": "bias",
                                        "running_mean": "mean", "running_var": "var"}),
     LayerNorm: (None, {"weight": "scale", "bias": "bias"}),
+    TokenLayerNorm: (None, {"weight": "scale", "bias": "bias"}),
+    LayerNorm2d: (None, {"weight": "weight", "bias": "bias"}),
 }
 
 

@@ -8,8 +8,10 @@ layouts, so that no tensor is transposed): `import_msmformer` fills
 models/msmformer_pretrained.PretrainedMSMFormer, `import_uoais_net`
 models/uoais_net_pretrained.UOAISNetPretrained, `import_uois_dsn` and
 `import_uois_rrn` models/uois_net_pretrained.PretrainedDSN and
-PretrainedRRN, and `import_cascadepsp` models/cascadepsp.PSPNetUOAIS. Every
-key of the checkpoint
+PretrainedRRN, `import_cascadepsp` models/cascadepsp.PSPNetUOAIS and
+`import_sam_hq` models/sam_hq.SAMHQ (its transposed convolutions' kernels
+[in, out, 2, 2] -> [out, in, 2, 2], the one transpose). Every key of the
+checkpoint
 must be mapped (or be a known buffer that carries no network state), else
 KeyError names the ones left (strict, the default).
 """
@@ -305,6 +307,103 @@ def import_cascadepsp(state_dict: dict, layers=(3, 4, 6, 3), strict: bool = True
         b.dense([f"{name}_2"], f"{name}.2")
     b.dense(["final_11"], "final_11")
     b.dense(["final_21"], "final_21")
+    return b.result(strict)
+
+
+# ---------------------------------------------------------------------------
+# SAM-HQ (the standard Sam layout with MaskDecoderHQ: sam_hq_vit_{b,l,h}.pth
+# or the reference's fine-tuned checkpoints)
+# ---------------------------------------------------------------------------
+
+
+def _sam_convT(b, path, tkey):
+    """torch ConvTranspose2d [in, out, 2, 2] -> SAMHQ's [out, in, 2, 2]."""
+    b.put(path, "weight", b.take(f"{tkey}.weight").transpose(0, 1).contiguous())
+    b.param(path, "bias", f"{tkey}.bias")
+
+
+def _sam_mlp(b, path, tkey, n_layers=3):
+    for i in range(n_layers):
+        b.dense(path + [f"layers_{i}"], f"{tkey}.layers.{i}")
+
+
+def _sam_attn(b, path, tkey):
+    for p in ("q_proj", "k_proj", "v_proj", "out_proj"):
+        b.dense(path + [p], f"{tkey}.{p}")
+
+
+def _sam_twoway(b, path, tkey, depth=2):
+    for i in range(depth):
+        t, f = f"{tkey}.layers.{i}", path + [f"layers_{i}"]
+        for attn in ("self_attn", "cross_attn_token_to_image", "cross_attn_image_to_token"):
+            _sam_attn(b, f + [attn], f"{t}.{attn}")
+        for j in (1, 2, 3, 4):
+            b.layernorm(f + [f"norm{j}"], f"{t}.norm{j}")
+        b.dense(f + ["mlp", "lin1"], f"{t}.mlp.lin1")
+        b.dense(f + ["mlp", "lin2"], f"{t}.mlp.lin2")
+    _sam_attn(b, path + ["final_attn_token_to_image"], f"{tkey}.final_attn_token_to_image")
+    b.layernorm(path + ["norm_final_attn"], f"{tkey}.norm_final_attn")
+
+
+def import_sam_hq(state_dict: dict, depth: int | None = None, strict: bool = True) -> dict:
+    """A SAM-HQ checkpoint (image_encoder / prompt_encoder / mask_decoder =
+    MaskDecoderHQ) -> SAMHQ's state dict. The ViT depth is read off the
+    block keys unless given (12 / 24 / 32 for ViT-B / L / H); the
+    pixel_mean / pixel_std buffers carry no learnt state and are dropped."""
+    b = _Builder({k.removeprefix("module."): v for k, v in state_dict.items()})
+    enc = ["image_encoder"]
+    if depth is None:
+        depth = 1 + max(int(k.split(".")[2]) for k in b.sd
+                        if k.startswith("image_encoder.blocks."))
+    b.dense(enc + ["patch_embed"], "image_encoder.patch_embed.proj")
+    b.param(enc, "pos_embed", "image_encoder.pos_embed")
+    for i in range(depth):
+        t, f = f"image_encoder.blocks.{i}", enc + [f"block_{i}"]
+        b.layernorm(f + ["norm1"], f"{t}.norm1")
+        b.layernorm(f + ["norm2"], f"{t}.norm2")
+        b.dense(f + ["attn", "qkv"], f"{t}.attn.qkv")
+        b.dense(f + ["attn", "proj"], f"{t}.attn.proj")
+        b.param(f + ["attn"], "rel_pos_h", f"{t}.attn.rel_pos_h")
+        b.param(f + ["attn"], "rel_pos_w", f"{t}.attn.rel_pos_w")
+        b.dense(f + ["mlp", "lin1"], f"{t}.mlp.lin1")
+        b.dense(f + ["mlp", "lin2"], f"{t}.mlp.lin2")
+    b.dense(enc + ["neck_0"], "image_encoder.neck.0")
+    b.layernorm(enc + ["neck_1"], "image_encoder.neck.1")
+    b.dense(enc + ["neck_2"], "image_encoder.neck.2")
+    b.layernorm(enc + ["neck_3"], "image_encoder.neck.3")
+
+    pe, tpe = ["prompt_encoder"], "prompt_encoder"
+    b.param(pe, "pe_gaussian", f"{tpe}.pe_layer.positional_encoding_gaussian_matrix")
+    b.put(pe, "point_embeddings", torch.cat(
+        [b.take(f"{tpe}.point_embeddings.{i}.weight") for i in range(4)]))
+    b.put(pe, "not_a_point_embed", b.take(f"{tpe}.not_a_point_embed.weight")[0])
+    b.put(pe, "no_mask_embed", b.take(f"{tpe}.no_mask_embed.weight")[0])
+    b.dense(pe + ["mask_down_0"], f"{tpe}.mask_downscaling.0")
+    b.layernorm(pe + ["mask_ln_1"], f"{tpe}.mask_downscaling.1")
+    b.dense(pe + ["mask_down_2"], f"{tpe}.mask_downscaling.3")
+    b.layernorm(pe + ["mask_ln_3"], f"{tpe}.mask_downscaling.4")
+    b.dense(pe + ["mask_proj"], f"{tpe}.mask_downscaling.6")
+
+    dec, tdec = ["mask_decoder"], "mask_decoder"
+    for token in ("iou_token", "mask_tokens", "hf_token"):
+        b.param(dec, token, f"{tdec}.{token}.weight")
+    _sam_twoway(b, dec + ["transformer"], f"{tdec}.transformer")
+    _sam_convT(b, dec + ["up_0"], f"{tdec}.output_upscaling.0")
+    b.layernorm(dec + ["up_ln_1"], f"{tdec}.output_upscaling.1")
+    _sam_convT(b, dec + ["up_3"], f"{tdec}.output_upscaling.3")
+    for i in range(4):
+        _sam_mlp(b, dec + [f"hyper_{i}"], f"{tdec}.output_hypernetworks_mlps.{i}")
+    _sam_mlp(b, dec + ["iou_head"], f"{tdec}.iou_prediction_head")
+    _sam_mlp(b, dec + ["hf_mlp"], f"{tdec}.hf_mlp")
+    for name, tkey in (("compress_vit", "compress_vit_feat"), ("enc", "embedding_encoder")):
+        _sam_convT(b, dec + [f"{name}_0"], f"{tdec}.{tkey}.0")
+        b.layernorm(dec + [f"{name}_ln_1"], f"{tdec}.{tkey}.1")
+        _sam_convT(b, dec + [f"{name}_3"], f"{tdec}.{tkey}.3")
+    b.dense(dec + ["maskfeat_0"], f"{tdec}.embedding_maskfeature.0")
+    b.layernorm(dec + ["maskfeat_ln_1"], f"{tdec}.embedding_maskfeature.1")
+    b.dense(dec + ["maskfeat_3"], f"{tdec}.embedding_maskfeature.3")
+    for k in ("pixel_mean", "pixel_std"):
+        b.used.add(k)
     return b.result(strict)
 
 

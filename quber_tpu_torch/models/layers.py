@@ -119,11 +119,20 @@ class Dense(nn.Linear):
         return F.linear(x.to(dt), self.weight.to(dt)) + self.bias.to(dt)
 
 
+def flax_layer_norm(x, weight, bias, eps: float):
+    """flax nn.LayerNorm's arithmetic over the last axis, in float32: the
+    variance as E[x^2] - E[x]^2, (x - mean) * (rsqrt(var + eps) * scale) +
+    bias."""
+    x = x.float()
+    mean = x.mean(dim=-1, keepdim=True)
+    var = ((x * x).mean(dim=-1, keepdim=True) - mean * mean).clamp_min(0)
+    return (x - mean) * (torch.rsqrt(var + eps) * weight) + bias
+
+
 class LayerNorm(nn.Module):
-    """flax nn.LayerNorm over the last axis: statistics in float32 (the
-    variance as E[x^2] - E[x]^2), (x - mean) * (rsqrt(var + eps) * scale) +
-    bias, and the result in `compute_dtype` (float32 unless a model sets
-    bfloat16). flax's default eps is 1e-6."""
+    """flax nn.LayerNorm over the last axis (`flax_layer_norm`), the result
+    in `compute_dtype` (float32 unless a model sets bfloat16). flax's
+    default eps is 1e-6."""
 
     compute_dtype = torch.float32
 
@@ -134,11 +143,7 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x):
-        x = x.float()
-        mean = x.mean(dim=-1, keepdim=True)
-        var = ((x * x).mean(dim=-1, keepdim=True) - mean * mean).clamp_min(0)
-        y = (x - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
-        return y.to(self.compute_dtype)
+        return flax_layer_norm(x, self.weight, self.bias, self.eps).to(self.compute_dtype)
 
 
 class ConvTranspose2x2(nn.Module):

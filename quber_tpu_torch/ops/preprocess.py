@@ -11,6 +11,8 @@ OpenCV; the port has no OpenCV, so this module carries its own copies:
     fixed-point path for uint8 images (11-bit weights, a horizontal pass
     into integers, a vertical pass with its rounding shifts, and the switch
     to INTER_AREA at an exact 2x downscale), float64 for other types;
+    `resize_linear_f32` is its float32 path, on torch tensors (the card's
+    or the host's): each pass p + (q - p) * w as one fused multiply-add;
   * `inpaint_telea` is `cv2.inpaint(..., INPAINT_TELEA)`: A. Telea, "An
     Image Inpainting Technique Based on the Fast Marching Method" (2004), as
     OpenCV's photo/src/inpaint.cpp implements it, with its float32
@@ -25,6 +27,7 @@ import heapq
 import math
 
 import numpy as np
+import torch
 from scipy import ndimage
 
 from quber_tpu_torch.data import png
@@ -168,6 +171,37 @@ def resize_linear(img: np.ndarray, size: tuple[int, int]) -> np.ndarray:
         info = np.iinfo(img.dtype)
         return np.clip(np.floor(x + 0.5), info.min, info.max).astype(img.dtype)
     return x.astype(img.dtype)
+
+
+def _lerp_taps(n_in: int, n_out: int, device):
+    """OpenCV's float INTER_LINEAR taps along one axis, on `device`: the
+    source position in double, its floor clamped into the image (a clamped
+    tap takes weight 0), and the fraction (kept in double, rounded to
+    float32 and back)."""
+    f = (torch.arange(n_out, dtype=torch.float64, device=device) + 0.5) * \
+        (1.0 / (n_out / n_in)) - 0.5
+    lo = torch.floor(f)
+    frac = torch.where((lo < 0) | (lo >= n_in - 1), 0.0, f - lo).float().double()
+    lo = lo.long().clamp(0, n_in - 1)
+    return lo, (lo + 1).clamp(max=n_in - 1), frac
+
+
+def resize_linear_f32(x: torch.Tensor, size: tuple[int, int]) -> torch.Tensor:
+    """cv2.resize(x, (w, h)) of float32 images x [..., H, W] (channels
+    first) at size = (h, w), as OpenCV 5.0 computes it: a horizontal then a
+    vertical pass, each p + (q - p) * frac with one rounding (a fused
+    multiply-add: the product and sum in float64, exact but for a double
+    rounding, then rounded to float32). Equal to cv2 on the sizes the SAM
+    wrappers and their recipe resize."""
+    h, w = size
+    out = x.float()
+    for axis, n_out in ((-1, w), (-2, h)):
+        lo, hi, frac = _lerp_taps(out.shape[axis], n_out, x.device)
+        if axis == -2:
+            frac = frac[:, None]
+        p, q = out.index_select(axis, lo), out.index_select(axis, hi)
+        out = ((q - p).double() * frac + p.double()).float()
+    return out
 
 
 # ---------------------------------------------------------------------------

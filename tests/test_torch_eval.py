@@ -269,16 +269,10 @@ def test_run_eval_matches_jax(case, refiners, osd6, trees, tmp_path):
     assert set(got["seconds"]) >= {"annotation", "base", "metrics"}
 
 
-@pytest.mark.parametrize("name", ["sam-depth", "grounded-sam", "sam", "detic"])
+@pytest.mark.parametrize("name", ["grounded-sam", "detic"])
 def test_zoo_base_models_wait_for_item_14(name):
     with pytest.raises(NotImplementedError, match="item 14"):
         tbase.build_base_model(name, "OSD")
-
-
-@pytest.mark.parametrize("name", ["sam", "hq-sam-pretrained", "hq-sam"])
-def test_zoo_refiners_wait_for_item_14(name):
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tref.build_refiner_model(name, "OSD", device="cpu")
 
 
 def test_fg_weights_from_npz_and_port_checkpoints(tmp_path):

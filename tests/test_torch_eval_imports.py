@@ -1,8 +1,9 @@
 """The port needs none of OpenCV, imageio, Pillow, JAX or the JAX package:
 a fresh interpreter in which importing any of them fails imports every
 module of quber_tpu_torch and the port's scripts, and runs run_eval (the
-foreground filter included), predict_torch.py and demo_torch.py on one small
-frame on the CPU, and the file-backed training path (the offline tools, the
+foreground filter included), tiny SAM wrappers (the mask-prompted refiner
+and the automatic generator on the depth), predict_torch.py and
+demo_torch.py on one small frame on the CPU, and the file-backed training path (the offline tools, the
 mapper with its augmentation, one step of train_net_torch.py and of
 train_fg_torch.py)."""
 
@@ -47,6 +48,15 @@ SCRIPT = textwrap.dedent("""
         rgb = tmp + "/osd/image_color/synth_00000.png"
         depth = rgb.replace("image_color", "disparity")
         np.save(tmp + "/masks.npy", GT("OSD").predict(rgb, depth)[0])
+        # SAM's refiner and automatic generator (on the depth), tiny models
+        from quber_tpu_torch.models.sam_refiner import SAMAutomaticBaseModel, SAMHQRefiner
+
+        tiny = dict(img_size=64, embed_dim=32, depth=2, num_heads=2, device="cpu")
+        sam = SAMHQRefiner(global_blocks=(1,), window_size=3, **tiny)
+        out = sam.predict(rgb, depth, GT("OSD").predict(rgb, depth)[0], None)
+        assert out[0].shape[1:] == (480, 640), out[0].shape
+        out = SAMAutomaticBaseModel(depth_input=True, **tiny).predict(rgb, depth)
+        assert out[0].shape[1:] == (480, 640), out[0].shape
         with open(tmp + "/small.yaml", "w") as f:  # the int8 weights at 96x128
             f.write("model:\\n  height: 96\\n  width: 128\\n")
         common = ["--config-file", tmp + "/small.yaml", "--device", "cpu"]

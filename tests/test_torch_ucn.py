@@ -367,7 +367,7 @@ def test_train_zoo_torch_cli(tmp_path, capsys, monkeypatch):
     x = jnp.zeros((1, H, W, 3))
     emb = JU.UCNEmbeddingNet().apply(tree, x, x)
     assert emb.shape == (1, H, W, 64) and bool(jnp.isfinite(emb).all())
-    assert train_zoo_torch.main(["--model", "samhq", "--device", "cpu"]) == 2
+    assert train_zoo_torch.main(["--model", "detic", "--device", "cpu"]) == 2
     assert "item 14" in capsys.readouterr().err
 
 

@@ -8,6 +8,7 @@ PyTorch/CUDA port on rendered synthetic scenes (one GPU).
     python3 train_zoo_torch.py --model uoisnet3d --max-iter 2000 --output-dir output/uoisnet3d_synth
     python3 train_zoo_torch.py --model cascadepsp --size 256 --max-iter 2000 --output-dir output/cascadepsp_synth
     python3 train_zoo_torch.py --model rice --max-iter 1000 --output-dir output/rice_synth
+    python3 train_zoo_torch.py --model samhq --max-iter 2000 --output-dir output/samhq_synth
 
 Counterpart of tools/train_zoo.py for quber_tpu_torch, with its flags,
 defaults and recipes. Each renders --size scenes from --seed, takes one
@@ -43,7 +44,12 @@ Adam at --lr over every variable:
     plausible (ground truth, boundary-jittered) and 16 implausible
     (fragments, merges, blobs, heavy corruption) masks; the NodeScorer on
     the crops hypothesis_node_crops makes for the search, ranked by
-    node_scorer_loss.
+    node_scorer_loss;
+  * samhq: SAM-normalised 256x256 frames and up to 4 objects a scene, each
+    a boundary-perturbed mask prompt (* 20 - 10) and its target at stride
+    4; a float32 SAMHQ at SAMHQ_SYNTH_ARCH from scratch, one encode and the
+    4 mask-prompt decodes a step, focal + dice on the HQ mask, averaged
+    over the valid slots; arch.json beside the checkpoint.
 Every --checkpoint-period steps the weights go to <output-dir>/ckpt (uoisnet3d:
 ckpt_dsn and ckpt_rrn) in the JAX package's variable layout (a save_params
 directory), and at the end also to <output-dir>/<model>[_dsn|_rrn]_int8.npz
@@ -57,6 +63,7 @@ either:
         QUBER_UOIS3D_RRN_CKPT=output/uoisnet3d_synth/ckpt_rrn ... --base-model uoisnet3d
     QUBER_CASCADEPSP_CKPT=output/cascadepsp_synth/ckpt ... --refiner-model cascadepsp
     QUBER_RICE_CKPT=output/rice_synth/ckpt ... --refiner-model rice
+    QUBER_SAMHQ_CKPT=output/samhq_synth/ckpt ... --refiner-model hq-sam
 
 Runs on the GPU unless --device cpu. The other models of tools/train_zoo.py
 exit with a message naming their item in ROADMAP.md.
@@ -252,6 +259,60 @@ def make_refine_crops(n, h, w, seed, depth_range, crop=224, per_scene=3):
                 out["seg"].append(resize_linear(pert[sl].astype(np.float32), (crop, crop)))
                 out["tgt"].append(resize_linear(m[sl].astype(np.float32), (crop, crop)))
     return {k: np.stack(v).astype(np.float32) for k, v in out.items()}
+
+
+# the SAM-HQ recipe's architecture (a ViT from scratch: the reference
+# fine-tunes a released ViT-H, which is not in the repository)
+SAMHQ_SYNTH_ARCH = dict(img_size=256, embed_dim=256, depth=6, num_heads=8,
+                        global_blocks=(2, 5), window_size=8)
+SAMHQ_SLOTS = 4
+
+
+def make_samhq_scenes(n, h, w, seed, depth_range, img_size=SAMHQ_SYNTH_ARCH["img_size"],
+                      slots=SAMHQ_SLOTS):
+    """The SAM-HQ pool, stacked: "img" the SAM-normalised RGB at img_size x
+    img_size (float32, channel-last as SAMHQ takes it); per slot (up to
+    `slots` objects of 64 pixels or more, shuffled) "prompt" the
+    boundary-perturbed mask (the object itself if that leaves IoU < 0.3)
+    resized to a quarter of img_size, * 20 - 10 (the wrapper's prompt
+    encoding), "tgt" the object at that size and "valid". Resizes are
+    OpenCV's float32 bilinear (resize_linear_f32)."""
+    import numpy as np
+    import torch
+
+    from quber_tpu_torch.data.perturb import mask_iou, modify_boundary
+    from quber_tpu_torch.data.synthetic import render_scene
+    from quber_tpu_torch.models.sam_hq import SAM_PIXEL_MEAN, SAM_PIXEL_STD
+    from quber_tpu_torch.ops.preprocess import resize_linear_f32
+
+    def resize(x, size):
+        return resize_linear_f32(torch.from_numpy(np.ascontiguousarray(x, np.float32)),
+                                 (size, size)).numpy()
+
+    s, q = img_size, img_size // 4
+    rng = np.random.RandomState(seed)
+    out = {k: [] for k in ("img", "prompt", "tgt", "valid")}
+    for _ in range(n):
+        rgb, _depth, vis = render_scene(rng, h, w, depth_range=depth_range)
+        img = resize(rgb[..., ::-1].transpose(2, 0, 1), s).transpose(1, 2, 0)
+        out["img"].append((img - SAM_PIXEL_MEAN) / SAM_PIXEL_STD)
+        prompts = np.zeros((slots, q, q), np.float32)
+        tgts = np.zeros((slots, q, q), np.float32)
+        valid = np.zeros((slots,), bool)
+        objs = [m.astype(np.uint8) for m in vis if m.sum() >= 64]
+        rng.shuffle(objs)
+        for i, m in enumerate(objs[:slots]):
+            pert = modify_boundary(m, rng, (0.6, 0.95))
+            if not pert.any() or mask_iou(pert, m) < 0.3:
+                pert = m
+            prompts[i] = resize(pert, q) * 20.0 - 10.0
+            tgts[i] = resize(m, q)
+            valid[i] = True
+        out["prompt"].append(prompts)
+        out["tgt"].append(tgts)
+        out["valid"].append(valid)
+    return {k: np.stack(v).astype(np.float32) if k != "valid" else np.stack(v)
+            for k, v in out.items()}
 
 
 # the pools' [n, H, W, C] images; the mask stacks [n, SLOTS, H, W] stay as they are
@@ -574,6 +635,42 @@ def make_rice_step(model, optimizer):
     return step
 
 
+def make_samhq(seed, lr, device):
+    """A float32 SAMHQ at SAMHQ_SYNTH_ARCH initialised from `seed` on
+    `device`, and Adam over all its parameters."""
+    import torch
+
+    from quber_tpu_torch.models.sam_hq import SAMHQ
+
+    model = SAMHQ(**SAMHQ_SYNTH_ARCH)
+    model.reset_parameters(torch.Generator().manual_seed(seed))
+    model = model.to(device).eval()
+    return model, torch.optim.Adam(model.parameters(), lr=lr)
+
+
+def make_samhq_step(model, optimizer):
+    """step(pool, scene) -> (loss, parts): one Adam update of the SAMHQ on
+    scene `scene` of a staged make_samhq_scenes pool: one encode, the slots'
+    mask-prompt decodes as one batch, each slot's focal + dice on its HQ
+    mask, their mean over the valid slots."""
+    import torch
+
+    from quber_tpu_torch.models.sam_hq import sam_hq_mask_loss
+
+    def step(pool, scene):
+        embed, interm = model.encode(pool["img"][scene][None])
+        masks, _, _ = model.decode(embed, interm, pool["prompt"][scene][..., None], False, True)
+        tgt, ok = pool["tgt"][scene], pool["valid"][scene].float()
+        per = torch.stack([sam_hq_mask_loss(masks[i], tgt[i][None]) for i in range(len(ok))])
+        loss = (per * ok).sum() / ok.sum().clamp_min(1)
+        optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        optimizer.step()
+        return loss.detach(), {"focal_dice": loss.detach()}
+
+    return step
+
+
 RECIPES = {
     # model: (scene maker, model maker, step maker)
     "ucn": (make_labeled_scenes, make_ucn, make_ucn_step),
@@ -582,6 +679,7 @@ RECIPES = {
     "uoisnet3d": (make_labeled_scenes, make_uoisnet3d, make_uoisnet3d_step),
     "cascadepsp": (make_refine_crops, make_cascadepsp, make_cascadepsp_step),
     "rice": (make_rice_scenes, make_rice, make_rice_step),
+    "samhq": (make_samhq_scenes, make_samhq, make_samhq_step),
 }
 
 
@@ -623,6 +721,11 @@ def train(args, device):
              for name, module in saved_modules(args, model).items()}
     for ckpt_dir in saved:
         os.makedirs(ckpt_dir, exist_ok=True)
+    if args.model == "samhq":  # the evaluation wrapper rebuilds the architecture from it
+        import json
+
+        with open(os.path.join(args.output_dir, "arch.json"), "w") as f:
+            json.dump(SAMHQ_SYNTH_ARCH, f)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     timing = {"t0": time.time()}
