@@ -224,8 +224,33 @@ Phases (any failure ends the run with a non-zero exit code):
      generator (sam, sam-depth, bias raised in both copies) card against CPU
      on the first anchor frame the card segments (the count equal, >=
      SAM_AGREEMENT of the labels);
- 26. print a JSON line of the kernels' numbers (each row with the launches
-     of phases 20-25 beside those of earlier paths), the frame time,
+ 26. the open-vocabulary base segmenters and the late-fusion study: (a)
+     from seeded inits, float32 (TF32 off) card against CPU (each float
+     output within OPENVOCAB_RTOL of max |CPU|, the selections equal; a
+     TF32 forward printed beside it), then the wrappers' modules in
+     bfloat16 on the card (finite, the distance to float32 printed): the
+     hash text tower and DeticDetector (128 proposals, 32 detections) over
+     the OSD names on the first anchor frame with detectron2's pixel mean
+     and std taken out (and, printed, not gated, the gap and whether the
+     selections agree over DETECTOR_SURVEY_SEEDS' inits, each on its own
+     frame, normalised and raw), on the first anchor frame CLIP's text tower at ViT-B width (the committed
+     mini merges file) and GroundedSAM's pipeline (its grounder on the
+     normalised frame) with a ViT-B SAM at 512 and its 16 box decodes; (b) train_zoo_torch's
+     detic and gsam steps card against CPU in float32 (the second from the
+     CPU's state; losses rtol 1e-3, first gradients cosine >= 0.999), then
+     40 of each recipe's own steps timed (ms a step, peak memory), the
+     weights saved with vocab.json / arch.json; (c) phase 14's frames
+     through run_eval with base detic and grounded-sam ((b)'s evaluated
+     copies through $QUBER_DETIC_CKPT / $QUBER_GSAM_CKPT, OPENVOCAB_THRESH's
+     comment) and the flagship refiner per image and streamed at B = 8
+     (launches added to each kernel row as zoo_eval["detic"] and
+     ["grounded-sam"]), each wrapper's device seconds a frame; (d) the
+     float32 wrappers card against CPU on the first anchor frame the card
+     segments (the count equal, >= 99.5% of the labels); (e) the late-fusion
+     encoder-decoder at 480x640 (batch 2) card against CPU, two train_eee
+     steps card against CPU, 20 timed; the phase's seconds;
+ 27. print a JSON line of the kernels' numbers (each row with the launches
+     of phases 20-26 beside those of earlier paths), the frame time,
      and as the last line {"ok": true, "device": {...}}.
 Needs CUDA; it has no CPU mode.
 """
@@ -370,6 +395,33 @@ SAM_PARITY_FRAMES = 1
 # evaluated and compared copies (both alike) have iou_head's last bias
 # raised by this, so that they segment
 SAM_IOU_SHIFT = 0.5
+OPENVOCAB_SEED = 15  # phase 26's inits
+# phase 26(a)'s float32 forwards, card against CPU (TF32 off): max |card -
+# CPU| over max |CPU| of each output. The detector's FrozenBN is the
+# identity at init, so its trunk runs unnormalised on the raw 0-255 frame,
+# as UOAIS-Net's does in phase 23; the selections (classes, valid,
+# det_index) must be equal. On the raw frame the gap reaches half the
+# tolerance: the detector's and the grounder's gated checks take the frame
+# with detectron2's pixel mean and std taken out, in both copies. A
+# float32 rounding can still reorder two proposals or detections whose
+# scores nearly tie: a survey over these further inits, each on its own
+# anchor frame, normalised and raw, prints how often (not gated)
+DETECTOR_SURVEY_SEEDS = tuple(range(16, 28))
+DETECTOR_PIXEL_MEAN = np.asarray([103.53, 116.28, 123.675], np.float32)  # BGR
+DETECTOR_PIXEL_STD = np.asarray([57.375, 57.12, 58.395], np.float32)
+OPENVOCAB_RTOL = {"detector": 1e-3, "clip": SAM_RTOL, "grounded-sam": 1e-3,
+                  "late fusion": ABLATION_RTOL}
+CLIP_MINI_MERGES = os.path.join("tests", "fixtures", "clip_mini_merges.txt")
+# phase 26(c): the evaluated copies of the 40-step weights keep every valid
+# detection ($QUBER_DETIC_THRESH, $QUBER_GSAM_THRESH), their boxes are their
+# anchors (RPN and box deltas zeroed: 40 steps clip boxes to no area, and
+# Detic pastes a mask only inside its box), Detic's mask bias moves by the
+# median logit of a training scene's detections; GroundedSAM's SAM, where
+# its HQ masks hold no pixel on that scene, gets a constant channel in the
+# HQ features whose weight is the negated median logit
+OPENVOCAB_THRESH = "0"
+LATE_FUSION_BATCH = 2
+LATE_FUSION_STEPS = 20
 # H100 SXM data sheet: HBM3 rate and fp32 rate outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
@@ -2724,6 +2776,9 @@ def zoo2_forwards(dev, card):
         torch.cuda.empty_cache()
 
 
+OPEN_VOCAB_RECIPES = ("detic", "gsam")  # their detector runs bfloat16
+
+
 def _zoo2_recipe(name, seed, device):
     """(model, optimizer, step) of train_zoo_torch's recipe `name`, its own
     draws from `seed` (the command line's)."""
@@ -2732,19 +2787,22 @@ def _zoo2_recipe(name, seed, device):
     _, make_model, make_step = zoo.RECIPES[name]
     model, optimizer = make_model(seed, UCN_LR, device)
     opts = {"uoisnet3d": {"generator": torch.Generator(device).manual_seed(seed)},
-            "cascadepsp": {"size": ZOO2_CROPS, "seed": seed}}.get(name, {})
+            "cascadepsp": {"size": ZOO2_CROPS, "seed": seed},
+            "gsam": {"size": ZOO_POOL, "seed": seed}}.get(name, {})
     return model, optimizer, make_step(model, optimizer, **opts)
 
 
 def zoo2_training(dev, card, work, names=("uoisnet3d", "cascadepsp", "rice")):
-    """Phase 24(b) (and 25(b), `names` ("samhq",)): train_zoo_torch's
-    recipes' steps, card against CPU from the same init with the draws
-    handed over (the second step from the CPU's state), then 40 of each
-    recipe's own steps on the card, timed, the weights saved as
-    train_zoo_torch saves them. Returns {recipe: {checkpoint directory
-    name: path}}."""
+    """Phase 24(b) (and 25(b), `names` ("samhq",), and 26(b), ("detic",
+    "gsam")): train_zoo_torch's recipes' steps, card against CPU from the
+    same init with the draws handed over (the second step from the CPU's
+    state; the open-vocabulary recipes' detector in float32, their own runs
+    bfloat16), then 40 of each recipe's own steps on the card, timed, the
+    weights saved as train_zoo_torch saves them. Returns {recipe:
+    {checkpoint directory name: path}}; the open-vocabulary recipes' also
+    name their evaluated copy ("eval")."""
     import train_zoo_torch as zoo
-    from quber_tpu_torch.models.from_jax import state_dict_to_jax
+    from quber_tpu_torch.models.layers import set_compute_dtype
     from quber_tpu_torch.train.checkpoint import save_params
 
     ckpts = {}
@@ -2761,6 +2819,9 @@ def zoo2_training(dev, card, work, names=("uoisnet3d", "cascadepsp", "rice")):
         runs = {}
         for key, device in (("card", dev), ("cpu", torch.device("cpu"))):
             model, optimizer, step = _zoo2_recipe(name, 7, device)
+            if name in OPEN_VOCAB_RECIPES:  # held against the CPU in float32
+                set_compute_dtype(model["detector" if name == "detic" else "grounder"],
+                                  torch.float32)
             runs[key] = {"model": model, "opt": optimizer, "step": step,
                          "pool": zoo.stage(small, device), "losses": [], "s": 0.0}
         draw_g = torch.Generator().manual_seed(ZOO2_SEED)
@@ -2778,6 +2839,8 @@ def zoo2_training(dev, card, work, names=("uoisnet3d", "cascadepsp", "rice")):
             elif name == "cascadepsp":
                 extra = {"batch": batch_rng.integers(0, n_pool, zoo.CASCADEPSP_BATCH - 1).tolist()
                          + [scene]}
+            elif name == "gsam":
+                extra = {"sam_scene": (i + 1) % n_pool}
             for key, run in runs.items():
                 kw = dict(extra)
                 if "draws" in kw and key == "card":
@@ -2825,20 +2888,24 @@ def zoo2_training(dev, card, work, names=("uoisnet3d", "cascadepsp", "rice")):
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
         peak = torch.cuda.max_memory_allocated(dev) / 2**30
-        print(f"{name} train step on the card (float32): {statistics.median(times):.3f} ms median "
+        kind = "bfloat16 detector" if name in OPEN_VOCAB_RECIPES else "float32"
+        print(f"{name} train step on the card ({kind}): {statistics.median(times):.3f} ms median "
               f"of {ZOO_CARD_STEPS} ({'batch 4, 224x224 crops' if name == 'cascadepsp' else f'one {H}x{W} scene'}), "
               f"first {times[0]:.1f} ms, loss {float(loss):.4f}, peak {peak:.3f} GiB on {card}")
         if not np.isfinite(float(loss)):
             raise AssertionError(f"{name}: a loss on the card is not finite")
-        args = type("Args", (), {"model": name})
+        args = type("Args", (), {"model": name, "output_dir": os.path.join(work, name)})
         ckpts[name] = {}
         for dirname, module in zoo.saved_modules(args, model).items():
             ckpts[name][dirname] = os.path.join(work, name, dirname)
-            save_params(ckpts[name][dirname], state_dict_to_jax(module), step=ZOO_CARD_STEPS)
+            save_params(ckpts[name][dirname], zoo.jax_tree(module), step=ZOO_CARD_STEPS)
+        zoo.write_sidecars(args)
         if name == "uoisnet3d":
             ckpts[name] = _uoisnet3d_eval_copy(model, pool, work)
         if name == "cascadepsp":
             ckpts[name] = _cascadepsp_eval_copy(model, pool, ckpts[name], work)
+        if name in OPEN_VOCAB_RECIPES:
+            ckpts[name]["eval"] = _openvocab_eval_copy(name, model, pool, work)
         del model, optimizer, step, pool
         torch.cuda.empty_cache()
     return ckpts
@@ -3061,12 +3128,14 @@ def _sam_prompts(masks, q, n=SAM_PROMPTS):
     return torch.from_numpy(out)
 
 
-def _sam_card_against_cpu(label, model, run, dev, card):
+def _card_against_cpu(label, model, run, dev, card, rtol=SAM_RTOL, bf16=None):
     """`run(model, device)` -> {output: tensor} on the CPU, then on the card
-    (the model moved there), float32 with TF32 off: each output's max |card
-    - CPU| over max |CPU| within SAM_RTOL; then in bfloat16 on the card,
-    its mean distance from float32 printed (not gated). Returns the card's
-    float32 outputs."""
+    (the model moved there), float32 with TF32 off: each float output's max
+    |card - CPU| over max |CPU| within `rtol`, each integer output equal;
+    then with `bf16` (the model's submodules to set; the model by default;
+    () for none) computing in bfloat16 on the card, its float outputs
+    finite and their mean distance from float32 printed (not gated).
+    Returns the largest float32 gap."""
     from quber_tpu_torch.models.layers import set_compute_dtype
 
     t0 = time.perf_counter()
@@ -3081,12 +3150,12 @@ def _sam_card_against_cpu(label, model, run, dev, card):
         got = run(model, dev)
         torch.cuda.synchronize()
         card_ms = (time.perf_counter() - t0) * 1e3
-    rel, _ = _forward_gaps(got, cpu)
+    rel, same = _forward_gaps(got, cpu)
     print(f"{label} float32, card against CPU: max |card - CPU| over max |CPU| "
-          f"{({k: float(f'{r:.3g}') for k, r in rel.items()})} (tolerance {SAM_RTOL}); CPU "
-          f"{cpu_s:.2f} s, card {card_ms:.1f} ms (TF32 off)")
-    if not all(bool(torch.isfinite(v).all()) for v in got.values()) or \
-            max(rel.values()) > SAM_RTOL:
+          f"{({k: float(f'{r:.3g}') for k, r in rel.items()})} (tolerance {rtol}), integer "
+          f"outputs equal {same}; CPU {cpu_s:.2f} s, card {card_ms:.1f} ms (TF32 off)")
+    if not all(bool(torch.isfinite(v).all()) for v in _float_outputs(got).values()) or \
+            max(rel.values()) > rtol or not all(same.values()):
         raise AssertionError(f"{label}: the card and the CPU disagree")
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
     with torch.no_grad():
@@ -3094,21 +3163,24 @@ def _sam_card_against_cpu(label, model, run, dev, card):
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     print(f"{label} with TF32 on (a control, not gated): max |card - CPU| over max |CPU| "
           f"{max(tf32.values()):.3g}")
-    set_compute_dtype(model, torch.bfloat16)
+    if bf16 == ():
+        return max(rel.values())
+    for mod in bf16 or [model]:
+        set_compute_dtype(mod, torch.bfloat16)
     with torch.no_grad():
         run(model, dev)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        bf16 = run(model, dev)
+        half = _float_outputs(run(model, dev))
         torch.cuda.synchronize()
         bf16_ms = (time.perf_counter() - t0) * 1e3
-    if not all(bool(torch.isfinite(v).all()) for v in bf16.values()):
+    if not all(bool(torch.isfinite(v).all()) for v in half.values()):
         raise AssertionError(f"{label}: a bfloat16 output on the card is not finite")
     dist = {k: float(f"{float((v.float() - got[k]).abs().mean() / got[k].abs().mean()):.3g}")
-            for k, v in bf16.items()}
+            for k, v in half.items()}
     print(f"{label} bfloat16 on the card: finite, {bf16_ms:.1f} ms; mean |bf16 - float32| over "
           f"mean |float32| {dist} on {card}")
-    return got
+    return max(rel.values())
 
 
 def sam_forwards(frames, initial, dev, card):
@@ -3134,8 +3206,8 @@ def sam_forwards(frames, initial, dev, card):
     n_params = sum(p.numel() for p in vit_h.parameters())
     print(f"ViT-H SAM-HQ ({n_params / 1e6:.1f}M parameters) built and initialised on the host in "
           f"{time.perf_counter() - t0:.1f} s")
-    _sam_card_against_cpu(f"hq-sam-pretrained ViT-H at 1024, encode + {SAM_PROMPTS} mask "
-                          "decodes", vit_h, refine, dev, card)
+    _card_against_cpu(f"hq-sam-pretrained ViT-H at 1024, encode + {SAM_PROMPTS} mask "
+                      "decodes", vit_h, refine, dev, card)
     del vit_h
     torch.cuda.empty_cache()
 
@@ -3159,8 +3231,8 @@ def sam_forwards(frames, initial, dev, card):
 
     vit_b = SAMHQ().eval()
     vit_b.reset_parameters(torch.Generator().manual_seed(SAM_SEED))
-    _sam_card_against_cpu(f"ViT-B at 1024, encode + {g * g} point decodes (multimask) + a "
-                          "box decode", vit_b, decode, dev, card)
+    _card_against_cpu(f"ViT-B at 1024, encode + {g * g} point decodes (multimask) + a "
+                      "box decode", vit_b, decode, dev, card)
     del vit_b
     torch.cuda.empty_cache()
 
@@ -3282,16 +3354,317 @@ def sam_parity(frames, initial, card):
 def sam_phase(root, params, frames, initial, dev, card, work):
     """Phase 25: SAM-HQ on the card. Returns the launches of 25(c)'s base
     evaluations."""
-    import train_zoo_torch as zoo
-
     sam_forwards(frames, initial, dev, card)
     ckpt = zoo2_training(dev, card, work, names=("samhq",))["samhq"]["ckpt"]
-    with open(os.path.join(os.path.dirname(ckpt), "arch.json"), "w") as f:
-        json.dump(zoo.SAMHQ_SYNTH_ARCH, f)
     sam_refiners(root, ckpt, card)
     launches = sam_bases(root, params, frames, card)
     sam_parity(frames, initial, card)
     return launches
+
+
+def _detector_frame(bgr):
+    """A BGR uint8 frame as the [1, 3, H, W] float32 input of phase 26(a)'s
+    parity checks: detectron2's BGR pixel mean and std taken out
+    (DETECTOR_PIXEL_MEAN / _STD)."""
+    x = (bgr.astype(np.float32) - DETECTOR_PIXEL_MEAN) / DETECTOR_PIXEL_STD
+    return torch.from_numpy(np.ascontiguousarray(x.transpose(2, 0, 1)))[None]
+
+
+def _card_cpu_gap(model, run, dev):
+    """(largest float gap, every integer output equal) of `run(model,
+    device)` on the card against the CPU, float32; `model` is left on the
+    CPU."""
+    with torch.no_grad():
+        cpu = run(model, torch.device("cpu"))
+        rel, same = _forward_gaps(run(model.to(dev), dev), cpu)
+    model.to("cpu")
+    return float(f"{max(rel.values()):.3g}"), all(same.values())
+
+
+def detector_parity(images, dev, card):
+    """Phase 26(a)'s detector: the hash text tower and DeticDetector (480x640,
+    128 proposals, 32 detections) over the OSD vocabulary. Gated: from
+    OPENVOCAB_SEED's init on the first of the BGR `images` normalised
+    (_detector_frame), _card_against_cpu in float32 (TF32 off) and in
+    bfloat16. Then a survey (printed, not gated): from each of
+    DETECTOR_SURVEY_SEEDS' inits on its own frame, normalised and raw, the
+    largest gap and whether every selection is equal. Returns the survey,
+    {seed: {"normalised" | "raw": (gap, selections equal)}}."""
+    from torch import nn
+
+    from quber_tpu_torch.models.open_vocab import (
+        VOCABULARIES, DeticDetector, TextEncoder, hash_tokenize)
+
+    vocab = VOCABULARIES["OSD"]
+    ids, mask = (torch.from_numpy(a) for a in hash_tokenize(vocab))
+
+    def init(seed):
+        generator = torch.Generator().manual_seed(seed)
+        detic = nn.ModuleDict({"text": TextEncoder(), "detector": DeticDetector()}).eval()
+        detic["text"].reset_parameters(generator)
+        detic["detector"].reset_parameters(generator)
+        return detic
+
+    def detect(image):
+        def run(model, device):
+            embeds = model["text"](ids.to(device), mask.to(device))
+            return dict(model["detector"](image.to(device), embeds), text_embeds=embeds)
+        return run
+
+    detic = init(OPENVOCAB_SEED)
+    _card_against_cpu(f"DeticDetector at {H}x{W} (128 proposals, 32 detections) with the hash "
+                      f"tower over the {len(vocab)} OSD names on the normalised frame", detic,
+                      detect(_detector_frame(images[0])), dev, card,
+                      OPENVOCAB_RTOL["detector"], bf16=[detic["detector"]])
+    del detic
+    survey = {}
+    for seed, bgr in zip(DETECTOR_SURVEY_SEEDS, images[1:]):
+        detic = init(seed)
+        raw = torch.from_numpy(np.ascontiguousarray(bgr.transpose(2, 0, 1), np.float32))[None]
+        survey[seed] = {"normalised": _card_cpu_gap(detic, detect(_detector_frame(bgr)), dev),
+                        "raw": _card_cpu_gap(detic, detect(raw), dev)}
+        del detic
+    flips = {k: sum(not v[k][1] for v in survey.values()) for k in ("normalised", "raw")}
+    agree = {k: max((v[k][0] for v in survey.values() if v[k][1]), default=None)
+             for k in ("normalised", "raw")}
+    print(f"DeticDetector survey (not gated), float32 card against CPU, seeds "
+          f"{DETECTOR_SURVEY_SEEDS[0]}-{DETECTOR_SURVEY_SEEDS[-1]} each on its own anchor frame "
+          f"(largest gap, every selection equal): {survey}; selections differ on {flips} of "
+          f"{len(survey)}; largest gap where they agree {agree} on {card}")
+    return survey
+
+
+def openvocab_forwards(frames, dev, card):
+    """Phase 26(a): from seeded inits, float32 (TF32 off) card against CPU,
+    then the wrappers' modules in bfloat16 on the card: the detector on the
+    first anchor frame normalised, and its survey (detector_parity), and on
+    the first anchor frame CLIP's text tower at ViT-B width over the
+    OSD vocabulary (the committed mini merges file), and GroundedSAM's
+    pipeline (grounder on the normalised frame, SAM ViT-B at 512 encoding
+    SAM's frame once, the 16 grounded boxes decoded, the HQ logits resized
+    to 480x640)."""
+    from torch import nn
+
+    from quber_tpu_torch.models.clip_text import CLIPTextEncoder, CLIPTokenizer
+    from quber_tpu_torch.models.layers import resize_bilinear, set_compute_dtype
+    from quber_tpu_torch.models.open_vocab import (
+        VOCABULARIES, GroundedSAMBaseModel, hash_tokenize, sam_frame)
+
+    keys = list(frames)
+    detector_parity([frames[k][0] for k in keys], dev, card)
+    bgr = frames[keys[0]][0]
+    image = _detector_frame(bgr)
+    vocab = VOCABULARIES["OSD"]
+    generator = torch.Generator().manual_seed(OPENVOCAB_SEED)
+    tokenizer = CLIPTokenizer(CLIP_MINI_MERGES, context_length=77)
+    clip_ids = torch.from_numpy(tokenizer([t.replace("_", " ") for t in vocab]))
+    clip = CLIPTextEncoder().eval()
+    clip.reset_parameters(generator)
+    _card_against_cpu("CLIP text tower at ViT-B width (12 blocks of 512, context 77) over "
+                      "the OSD names, the mini merges", clip,
+                      lambda m, d: {"embeds": m(clip_ids.to(d))}, dev, card,
+                      OPENVOCAB_RTOL["clip"], bf16=())
+    del clip
+
+    wrapper = GroundedSAMBaseModel(seed=OPENVOCAB_SEED, device="cpu")
+    gsam = nn.ModuleDict({"text": wrapper.text_encoder, "grounder": wrapper.grounder,
+                          "sam": wrapper.sam})
+    for mod in (gsam["grounder"], gsam["sam"]):
+        set_compute_dtype(mod, torch.float32)
+    g_ids, g_mask = (torch.from_numpy(a) for a in hash_tokenize([wrapper.text_prompt]))
+    s = wrapper.sam_size
+    sam_img = torch.from_numpy(np.ascontiguousarray(sam_frame(bgr.astype(np.float32), s)))
+    scale = torch.tensor([W, H, W, H], dtype=torch.float32)
+
+    def ground(model, device):
+        embeds = model["text"](g_ids.to(device), g_mask.to(device))
+        out = model["grounder"](image.to(device), embeds)
+        embed, interm = model["sam"].encode(sam_img[None].to(device))
+        masks, iou, _ = model["sam"].decode_box(embed, interm,
+                                                out["boxes"] / scale.to(device) * s, False, True)
+        return {"boxes": out["boxes"], "scores": out["scores"], "valid": out["valid"],
+                "det_index": out["det_index"], "embed": embed, "interm": interm,
+                "masks_lr": masks, "iou": iou, "masks": resize_bilinear(masks[:, 0], (H, W))}
+
+    _card_against_cpu(f"GroundedSAM pipeline (grounder on the normalised frame, SAM ViT-B at {s}, "
+                      f"{wrapper.grounder.max_detections} box decodes)", gsam, ground, dev,
+                      card, OPENVOCAB_RTOL["grounded-sam"],
+                      bf16=[gsam["grounder"], gsam["sam"]])
+    del gsam, wrapper
+    torch.cuda.empty_cache()
+
+
+def _force_hq_pixels(sam, embed, interm, boxes):
+    """Give the SAM's HQ features a constant channel (channel 0 of the mask
+    feature conv a bias of 1, of the two feature branches 0) and its HQ
+    token's hypernetwork a constant weight on it, the negated median of the
+    box decodes' HQ logits. Returns the weight."""
+    dec = sam.mask_decoder
+    for conv in (dec.enc_3, dec.compress_vit_3):
+        conv.weight[0] = 0.0
+        conv.bias[0] = 0.0
+    dec.maskfeat_3.weight[0] = 0.0
+    dec.maskfeat_3.bias[0] = 1.0
+    last = dec.hf_mlp.layers_2
+    last.weight[0] = 0.0
+    last.bias[0] = 0.0
+    logits = sam.decode_box(embed, interm, boxes, False, True)[0]
+    shift = -float(logits.median())
+    last.bias[0] = shift
+    return shift
+
+
+def _openvocab_eval_copy(name, model, pool, work):
+    """The weights 26(c) evaluates (OPENVOCAB_THRESH's comment): (b)'s 40
+    steps with the detector's RPN and box deltas zeroed and Detic's mask
+    bias, or GroundedSAM's HQ channel, moved on training scene 0. Saved with
+    the recipe's sidecars; returns the checkpoint directory."""
+    import train_zoo_torch as zoo
+    from quber_tpu_torch.train.checkpoint import save_params
+
+    detector = model["detector" if name == "detic" else "grounder"]
+    with torch.no_grad():
+        for layer in (detector.rpn.deltas, detector.box_deltas):
+            layer.weight.zero_()
+            layer.bias.zero_()
+        out = detector(pool["bgr"][0][None], model["text"](model.text_ids, model.text_mask))
+        valid = out["valid"]
+        if name == "detic":
+            shift = -float(out["masks"][valid].median())
+            detector.mask_pred.bias += shift
+            note = f"mask bias moved by {shift:.4f}"
+        else:
+            sam = model["sam"]
+            s = sam.img_size
+            scale = torch.tensor([W, H, W, H], dtype=torch.float32, device=valid.device)
+            embed, interm = sam.encode(pool["sam_img"][0][None])
+            boxes = out["boxes"][valid] / scale * s
+            held = int((sam.decode_box(embed, interm, boxes, False, True)[0] > 0).sum())
+            note = f"the 40-step SAM's HQ masks hold {held} pixels on the scene's boxes"
+            if not held:
+                note += (f"; HQ channel weight "
+                         f"{_force_hq_pixels(sam, embed, interm, boxes):.4f}")
+    print(f"{name}: the evaluated copy's deltas zeroed, {int(valid.sum())} valid detections on "
+          f"a training scene, {note}")
+    out_dir = os.path.join(work, name, "eval")
+    save_params(os.path.join(out_dir, "ckpt"), zoo.jax_tree(model), step=ZOO_CARD_STEPS)
+    zoo.write_sidecars(type("Args", (), {"model": name, "output_dir": out_dir}))
+    return os.path.join(out_dir, "ckpt")
+
+
+# base name: (its recipe, checkpoint and threshold variables)
+_OPENVOCAB_BASES = {"detic": ("detic", "QUBER_DETIC_CKPT", "QUBER_DETIC_THRESH"),
+                    "grounded-sam": ("gsam", "QUBER_GSAM_CKPT", "QUBER_GSAM_THRESH")}
+
+
+def _float32_base(name):
+    """build(device): the `name` wrapper built by its name, its detector and
+    SAM set to float32."""
+    from quber_tpu_torch.evaluation.base_models import build_base_model
+    from quber_tpu_torch.models.layers import set_compute_dtype
+
+    def build(device):
+        base = build_base_model(name, "OSD", device=device)
+        for mod in ((base.detector,) if name == "detic" else (base.grounder, base.sam)):
+            set_compute_dtype(mod, torch.float32)
+        return base
+
+    return build
+
+
+def openvocab_phase(root, params, frames, dev, card, work):
+    """Phase 26: the open-vocabulary base segmenters and the late-fusion
+    study on the card. Returns the launches of 26(c)'s evaluations."""
+    t0 = time.perf_counter()
+    openvocab_forwards(frames, dev, card)
+    ckpts = zoo2_training(dev, card, work, names=OPEN_VOCAB_RECIPES)
+    launches = {}
+    for base, (recipe, ckpt_env, thresh_env) in _OPENVOCAB_BASES.items():
+        os.environ[thresh_env] = OPENVOCAB_THRESH
+        launches[base] = base_evaluation(
+            base, ckpt_env, ckpts[recipe]["eval"], root, params, frames, card,
+            f"{base} (26(b)'s 40 steps, the evaluated copy, threshold {OPENVOCAB_THRESH})")
+        base_device_seconds(base, frames, card)
+        torch.cuda.empty_cache()
+    for base, (_, ckpt_env, thresh_env) in _OPENVOCAB_BASES.items():
+        # (d) the float32 wrappers, card against CPU
+        keys = _segmenting_frames(f"{base} (float32)", _float32_base(base), list(frames), 1)
+        _wrapper_parity(f"{base} wrapper (float32), card against CPU", _float32_base(base),
+                        keys, card)
+        del os.environ[ckpt_env], os.environ[thresh_env]
+    torch.cuda.empty_cache()
+    late_fusion(dev, card)
+    print(f"phase 26: {time.perf_counter() - t0:.1f} s on {card}")
+    return launches
+
+
+def late_fusion(dev, card):
+    """Phase 26(e): the late-fusion encoder-decoder at 480x640 (batch 2,
+    seeded inputs and one-hot error maps) from a seeded init, float32 card
+    against CPU; two train_eee steps (Adam, focal) card against CPU, the
+    second from the CPU's state; then LATE_FUSION_STEPS timed on the card."""
+    from quber_tpu_torch.models.late_fusion import MODALITIES, LateFusionEncoderDecoder
+    from quber_tpu_torch.train.eee_train import create_eee_state, make_eee_train_step
+
+    g = torch.Generator().manual_seed(OPENVOCAB_SEED)
+    b = LATE_FUSION_BATCH
+    batch = {k: torch.randn(b, c, H, W, generator=g) for k, c in MODALITIES}
+    for k in ("mask_target", "boundary_target"):
+        batch[k] = torch.nn.functional.one_hot(torch.randint(0, 3, (b, H, W), generator=g),
+                                               3).permute(0, 3, 1, 2).float()
+    inputs = [k for k, _ in MODALITIES]
+    model = LateFusionEncoderDecoder().eval()
+    model.reset_parameters(torch.Generator().manual_seed(OPENVOCAB_SEED))
+    _card_against_cpu(f"LateFusionEncoderDecoder at {H}x{W}, batch {b}", model,
+                      lambda m, d: m({k: batch[k].to(d) for k in inputs}), dev, card,
+                      OPENVOCAB_RTOL["late fusion"], bf16=())
+    del model
+    runs = {}
+    for key, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        model = LateFusionEncoderDecoder()
+        optimizer = create_eee_state(model, seed=OPENVOCAB_SEED, device=device)
+        runs[key] = {"model": model, "opt": optimizer, "losses": [],
+                     "step": make_eee_train_step(model, optimizer, "focal"),
+                     "batch": {k: v.to(device) for k, v in batch.items()}}
+    for i in range(ZOO_CPU_STEPS):
+        if i:
+            runs["card"]["model"].load_state_dict(runs["cpu"]["model"].state_dict())
+            runs["card"]["opt"].load_state_dict(runs["cpu"]["opt"].state_dict())
+        for run in runs.values():
+            run["losses"].append({k: float(v) for k, v in run["step"](run["batch"]).items()})
+            if i == 0:
+                run["grads"] = {n: p.grad.detach().cpu().double()
+                                for n, p in run["model"].named_parameters()}
+    grad_cpu, grad_gpu = runs["cpu"]["grads"], runs["card"]["grads"]
+    norm = {n: float(g.norm()) for n, g in grad_cpu.items()}
+    top = max(norm.values())
+    cos = min((float(torch.nn.functional.cosine_similarity(
+        g.flatten(), grad_gpu[n].flatten(), dim=0)), n)
+        for n, g in grad_cpu.items() if norm[n] > ZERO_GRAD_SHARE * top)
+    pairs = list(zip(runs["card"]["losses"], runs["cpu"]["losses"]))
+    print(f"late fusion, {ZOO_CPU_STEPS} train_eee steps card against CPU: losses card "
+          f"{[a['total_loss'] for a, _ in pairs]} cpu {[c['total_loss'] for _, c in pairs]} "
+          f"(rtol {CPU_LOSS_RTOL}); first gradient cosine min {cos[0]:.6f} at {cos[1]}")
+    if not all(abs(a[k] - c[k]) <= CPU_LOSS_RTOL * abs(c[k]) + 1e-6 for a, c in pairs for k in c):
+        raise AssertionError("late fusion: the card and the CPU disagree on a loss")
+    if cos[0] < GRAD_COSINE:
+        raise AssertionError("late fusion: the card and the CPU disagree on a gradient")
+    run = runs["card"]
+    del runs
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    times = []
+    for _ in range(LATE_FUSION_STEPS):
+        t0 = time.perf_counter()
+        metrics = run["step"](run["batch"])
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    print(f"late fusion train_eee step on the card (float32, batch {b} at {H}x{W}): "
+          f"{statistics.median(times):.3f} ms median of {LATE_FUSION_STEPS}, loss "
+          f"{float(metrics['total_loss']):.4f}, peak {peak:.3f} GiB on {card}")
+    if not np.isfinite(float(metrics["total_loss"])):
+        raise AssertionError("late fusion: a loss on the card is not finite")
 
 
 def _elapsed(what):
@@ -3388,6 +3761,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         zoo_launches.update(sam_phase(root, params, frames, initial, dev, card, work))
         _elapsed("phase 25")
+        torch.cuda.empty_cache()
+        zoo_launches.update(openvocab_phase(root, params, frames, dev, card, work))
+        _elapsed("phase 26")
     # the serving shapes' entries: launches on the single-frame CLI path
     # (predict, K = 24) and on the benchmark's batches of 16
     for row in rows:
@@ -3411,8 +3787,8 @@ def main() -> int:
         # the launches of the device-target steps from files (phase 22(b))
         row["file_train"] = {"launches": file_launches[name],
                              "path": f"{FILE_STEPS} device-target steps from UOAIS-Sim files"}
-        # the MSMFormer / UOAIS-Net / UOIS-Net-3D / SAM -> refiner
-        # evaluations (phases 23(c), 24(c) and 25(c))
+        # the MSMFormer / UOAIS-Net / UOIS-Net-3D / SAM / Detic /
+        # GroundedSAM -> refiner evaluations (phases 23(c)-26(c))
         row["zoo_eval"] = {base: {"launches_per_image": n[0][name],
                                   "launches_streamed": n[1][name],
                                   "path": f"run_eval, base {base}, {EVAL_FRAMES} frames"}

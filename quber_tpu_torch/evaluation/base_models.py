@@ -26,8 +26,15 @@ each a reference .pth (read through models/import_zoo) or a save_params
 directory of the port's state dict. `sam` and `sam-depth` are SAM's
 automatic mask generator (models/sam_refiner) on the RGB or on the
 normalised depth, at a seeded random init. The open-vocabulary base
-segmenters are not ported yet: their names raise NotImplementedError
-(ROADMAP.md, Queue 1 item 14).
+segmenters (models/open_vocab):
+  * `detic`: $QUBER_DETIC_CKPT (the ckpt directory of train_zoo_torch.py
+    --model detic, its {text, detector} tree, with vocab.json beside the
+    directory) and the confidence threshold $QUBER_DETIC_THRESH (default
+    0.5);
+  * `grounded-sam`: $QUBER_GSAM_CKPT (--model gsam's {text, grounder, sam}
+    tree, with arch.json beside the directory, the SAM it trained) and the
+    box threshold $QUBER_GSAM_THRESH (default 0.10);
+each a seeded random init without its checkpoint.
 """
 
 from __future__ import annotations
@@ -40,8 +47,7 @@ from quber_tpu_torch.data import png
 from quber_tpu_torch.data.perturb import perturb_masks
 from quber_tpu_torch.evaluation.datasets import BG_LABELS, EVAL_H, EVAL_W
 from quber_tpu_torch.ops.preprocess import resize_nearest
-
-ZOO_BASE_MODELS = ("detic", "grounded-sam")
+from quber_tpu_torch.train.checkpoint import load_eval_params
 
 
 class Empty:
@@ -165,6 +171,15 @@ def _reference_weights_or_none(env: str, default: str, importer):
         return None
 
 
+def _beside(ckpt: str, filename: str):
+    """The JSON file `filename` beside the checkpoint directory `ckpt` (a
+    recipe writes vocab.json / arch.json into its output directory)."""
+    import json
+
+    with open(os.path.join(os.path.dirname(os.path.abspath(ckpt)), filename)) as f:
+        return json.load(f)
+
+
 def build_base_model(name: str, dataset: str, npy_folder: str = "", device="cuda"):
     if name == "gt":
         return GT(dataset)
@@ -233,11 +248,27 @@ def build_base_model(name: str, dataset: str, npy_folder: str = "", device="cuda
 
         return SAMAutomaticBaseModel(dataset=dataset, depth_input=name == "sam-depth",
                                      device=device)
-    if name in ZOO_BASE_MODELS:
-        raise NotImplementedError(
-            f"base model {name} is not ported yet (ROADMAP.md, Queue 1 item 14)")
+    if name == "detic":
+        from quber_tpu_torch.models.open_vocab import DeticBaseModel
+
+        ckpt = os.environ.get("QUBER_DETIC_CKPT", "")
+        if not ckpt:
+            return DeticBaseModel(dataset=dataset, device=device)
+        return DeticBaseModel(
+            params=load_eval_params(ckpt), dataset=dataset,
+            vocabulary=_beside(ckpt, "vocab.json"), device=device,
+            confidence_threshold=float(os.environ.get("QUBER_DETIC_THRESH", "0.5")))
+    if name == "grounded-sam":
+        from quber_tpu_torch.models.open_vocab import GroundedSAMBaseModel
+
+        ckpt = os.environ.get("QUBER_GSAM_CKPT", "")
+        if not ckpt:
+            return GroundedSAMBaseModel(dataset=dataset, device=device)
+        return GroundedSAMBaseModel(
+            params=load_eval_params(ckpt), dataset=dataset, sam_arch=_beside(ckpt, "arch.json"),
+            device=device, box_threshold=float(os.environ.get("QUBER_GSAM_THRESH", "0.10")))
     raise NotImplementedError(
         f"base model {name}; available: gt, empty, npy, perturbed-gt, "
         "perturbed-gt-structural, ucn, ucn-zoomin, msmformer, msmformer-zoomin, "
         "msmformer-pretrained, uoaisnet, uoaisnet-amodal, uoaisnet-pretrained, uoisnet3d, "
-        "uoisnet3d-pretrained, sam, sam-depth")
+        "uoisnet3d-pretrained, sam, sam-depth, detic, grounded-sam")

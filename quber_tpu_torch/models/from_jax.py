@@ -2,7 +2,8 @@
 in every configuration, the Panoptic-DeepLab baseline, the UCN embedding
 net, the foreground nets CGNet and LMFFNet, MSMFormer and UOAIS-Net,
 UOIS-Net-3D's DSN and RRN in both variants, CascadePSP's PSPNetUOAIS,
-RICE's NodeScorer and SAM-HQ).
+RICE's NodeScorer, SAM-HQ, and the open-vocabulary models: the text
+towers, DeticDetector and GroundedSAM's parts).
 
 The port's modules are named after the flax scopes, so the map is a rename:
   * `<scope>/kernel` -> `<scope>.weight`, conv kernels HWIO -> OIHW and
@@ -21,8 +22,13 @@ The port's modules are named after the flax scopes, so the map is a rename:
     biases -> the Dense layers of layers.MultiHeadDotProductAttention over
     the flattened heads;
   * a bare parameter (MSMFormer's `query_embed`; SAM-HQ's position, point
-    and token embeddings and relative positions) -> the module's parameter
-    of that name, and SAM-HQ's LayerNorm2d `weight` keeps its name.
+    and token embeddings and relative positions; the text towers'
+    `pos_embed`, `token_embedding`, `positional_embedding` and
+    `text_projection`, the detector's `logit_scale`) -> the module's
+    parameter of that name, and SAM-HQ's LayerNorm2d `weight` keeps its
+    name;
+  * an nn.Embed's `embedding` -> the `weight` of its nn.Embedding (not
+    transposed).
 `state_dict_to_jax` is the inverse (it reads the norm scopes off the module
 types), and `load_optax_adam_state` carries Adam moments kept in the flax
 layout into a torch optimizer.
@@ -55,9 +61,11 @@ _LEAF = {
     "prelu_alpha": "prelu_alpha",
     "query_embed": "query_embed",
     "weight": "weight",  # SAM-HQ's LayerNorm2d
-    **{name: name for name in (  # SAM-HQ's bare parameters
+    "embedding": "weight",  # nn.Embed
+    **{name: name for name in (  # SAM-HQ's and the text towers' bare parameters
         "pos_embed", "rel_pos_h", "rel_pos_w", "pe_gaussian", "point_embeddings",
-        "not_a_point_embed", "no_mask_embed", "iou_token", "mask_tokens", "hf_token")},
+        "not_a_point_embed", "no_mask_embed", "iou_token", "mask_tokens", "hf_token",
+        "token_embedding", "positional_embedding", "text_projection", "logit_scale")},
 }
 
 
@@ -158,6 +166,8 @@ def state_dict_to_jax(model: nn.Module) -> dict:
             arr = np.ascontiguousarray(arr)
         elif isinstance(parent, nn.PReLU):
             leaf = "alpha"
+        elif isinstance(parent, nn.Embedding):
+            leaf = "embedding"
         elif leaf == "weight":
             leaf = "kernel"
             if arr.ndim == 4:

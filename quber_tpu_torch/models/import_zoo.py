@@ -10,7 +10,8 @@ models/uoais_net_pretrained.UOAISNetPretrained, `import_uois_dsn` and
 `import_uois_rrn` models/uois_net_pretrained.PretrainedDSN and
 PretrainedRRN, `import_cascadepsp` models/cascadepsp.PSPNetUOAIS and
 `import_sam_hq` models/sam_hq.SAMHQ (its transposed convolutions' kernels
-[in, out, 2, 2] -> [out, in, 2, 2], the one transpose). Every key of the
+[in, out, 2, 2] -> [out, in, 2, 2], the one transpose) and
+`import_clip_text` models/clip_text.CLIPTextEncoder. Every key of the
 checkpoint
 must be mapped (or be a known buffer that carries no network state), else
 KeyError names the ones left (strict, the default).
@@ -404,6 +405,37 @@ def import_sam_hq(state_dict: dict, depth: int | None = None, strict: bool = Tru
     b.dense(dec + ["maskfeat_3"], f"{tdec}.embedding_maskfeature.3")
     for k in ("pixel_mean", "pixel_std"):
         b.used.add(k)
+    return b.result(strict)
+
+
+# ---------------------------------------------------------------------------
+# CLIP's text tower (the open-vocabulary wrappers' vocabulary embedding)
+# ---------------------------------------------------------------------------
+
+
+def import_clip_text(state_dict: dict, strict: bool = True) -> dict:
+    """A CLIP state dict -> CLIPTextEncoder's state dict: a whole CLIP model
+    (its visual tower and logit_scale are not read) or a text-only one; the
+    layer count is read off the transformer.resblocks keys. The fused
+    in_proj and text_projection ([width, embed_dim], applied as pooled @
+    text_projection) keep their layouts."""
+    b = _Builder({k.removeprefix("module."): v for k, v in state_dict.items()})
+    layers = 1 + max(int(k.split(".")[2]) for k in b.sd
+                     if k.startswith("transformer.resblocks."))
+    b.param([], "token_embedding", "token_embedding.weight")
+    b.param([], "positional_embedding", "positional_embedding")
+    for i in range(layers):
+        t, f = f"transformer.resblocks.{i}", [f"resblock_{i}"]
+        b.layernorm(f + ["ln_1"], f"{t}.ln_1")
+        b.param(f + ["in_proj"], "weight", f"{t}.attn.in_proj_weight")
+        b.param(f + ["in_proj"], "bias", f"{t}.attn.in_proj_bias")
+        b.dense(f + ["out_proj"], f"{t}.attn.out_proj")
+        b.layernorm(f + ["ln_2"], f"{t}.ln_2")
+        b.dense(f + ["c_fc"], f"{t}.mlp.c_fc")
+        b.dense(f + ["c_proj"], f"{t}.mlp.c_proj")
+    b.layernorm(["ln_final"], "ln_final")
+    b.param([], "text_projection", "text_projection")
+    b.used.update(k for k in b.sd if k.startswith("visual.") or k == "logit_scale")
     return b.result(strict)
 
 

@@ -170,12 +170,15 @@ class ConvTranspose2x2(nn.Module):
 
 class MultiHeadDotProductAttention(nn.Module):
     """flax nn.MultiHeadDotProductAttention(num_heads) for self-attention on
-    [B, L, E] (no mask, no dropout): query / key / value projections, logits
+    [B, L, E] (no dropout): query / key / value projections, logits
     q . k / sqrt(head_dim), softmax, the heads merged by `out`. flax keeps
     the projections as [E, heads, head_dim] (and `out` as [heads, head_dim,
     E]); here they are Dense layers over the flattened heads. Computes in
     `compute_dtype` (the Dense layers in their own, which a model sets to
-    the same), as flax's dtype does, the softmax included."""
+    the same), as flax's dtype does, the softmax included. An optional
+    boolean `mask` (broadcast to [B, heads, L, L], True = attend) sets the
+    masked logits to the type's lowest finite value, as flax does: a query
+    row masked whole gets a uniform, finite softmax (-inf would give NaN)."""
 
     compute_dtype = torch.float32
 
@@ -187,14 +190,17 @@ class MultiHeadDotProductAttention(nn.Module):
         self.value = Dense(dim, dim)
         self.out = Dense(dim, dim)
 
-    def forward(self, x):
+    def forward(self, x, mask=None):
         b, l, e = x.shape
         nh, dt = self.num_heads, self.compute_dtype
         hd = e // nh
         q, k, v = (lin(x).reshape(b, l, nh, hd).transpose(1, 2)
                    for lin in (self.query, self.key, self.value))
         q = q / torch.tensor(hd, dtype=torch.float32).sqrt().to(dt)
-        attn = flax_softmax(q @ k.transpose(-2, -1))
+        logits = q @ k.transpose(-2, -1)
+        if mask is not None:
+            logits = logits.masked_fill(~mask, torch.finfo(logits.dtype).min)
+        attn = flax_softmax(logits)
         y = (attn @ v).transpose(1, 2).reshape(b, l, e)
         return self.out(y)
 

@@ -362,6 +362,19 @@ def paste_masks(mask_logits: torch.Tensor, boxes: torch.Tensor, valid: torch.Ten
     return (torch.sigmoid(val) > threshold) & inside & valid[:, None, None]
 
 
+def forced_positives(iou: torch.Tensor, gt_valid: torch.Tensor) -> torch.Tensor:
+    """[A] bool: the best anchor of each ground truth (the first of an
+    [A, N] IoU column's maxima), set to that ground truth's validity. Where
+    two ground truths name one anchor the later one decides, as the
+    reference's scatter: an invalid slot's column is all zero, so it names
+    anchor 0 and clears it even where a valid ground truth named it."""
+    dev = iou.device
+    per_gt_best = torch.argmax(iou, dim=0)
+    last = torch.full((iou.shape[0],), -1, dtype=torch.long, device=dev).scatter_reduce(
+        0, per_gt_best, torch.arange(iou.shape[1], device=dev), reduce="amax")
+    return (last >= 0) & gt_valid[last.clamp_min(0)]
+
+
 def _smooth_l1(x):
     ax = x.abs()
     return torch.where(ax < 1.0, 0.5 * x * x, ax - 0.5)
@@ -369,6 +382,46 @@ def _smooth_l1(x):
 
 def _bce_with_logits(x, t):
     return x.clamp_min(0) - x * t + torch.log1p(torch.exp(-x.abs()))
+
+
+def rpn_losses(outputs: dict, gt_boxes: torch.Tensor, gt_valid: torch.Tensor,
+               pos_iou: float = 0.7, neg_iou: float = 0.3):
+    """(objectness, box) losses of the RPN: anchors above `pos_iou` with a
+    ground truth, and each ground truth's best anchor (forced_positives),
+    are positive, those below `neg_iou` negative; BCE with positives and
+    negatives weighted 1:1, and the smooth-L1 deltas of the positives to
+    their best ground truth."""
+    anchors = outputs["anchors"]
+    iou = torch.where(gt_valid[None, :], box_ops.box_iou(anchors, gt_boxes), 0.0)
+    best_iou, best_gt = iou.max(dim=1).values, torch.argmax(iou, dim=1)
+    pos = (best_iou > pos_iou) | forced_positives(iou, gt_valid)
+    t, fn_ = pos.float(), (best_iou < neg_iou).float()
+    w = 0.5 * t / t.sum().clamp_min(1.0) + 0.5 * fn_ / fn_.sum().clamp_min(1.0)
+    loss_obj = (_bce_with_logits(outputs["rpn_objectness"], t) * w).sum()
+    target_deltas = box_ops.boxes_to_deltas(anchors, gt_boxes[best_gt])
+    pw = t[:, None]
+    loss_box = (_smooth_l1(outputs["rpn_deltas"] - target_deltas) * pw).sum() / \
+        (pw.sum() * 4).clamp_min(1.0)
+    return loss_obj, loss_box
+
+
+def match_proposals(outputs: dict, gt_boxes: torch.Tensor, gt_valid: torch.Tensor,
+                    pos_iou: float = 0.5):
+    """(each proposal's best ground truth [P], whether it is a valid
+    proposal matching it above `pos_iou` [P])."""
+    piou = torch.where(gt_valid[None, :], box_ops.box_iou(outputs["proposal_boxes"], gt_boxes),
+                       0.0)
+    p_best, p_gt = piou.max(dim=1).values, torch.argmax(piou, dim=1)
+    return p_gt, (p_best > pos_iou) & outputs["proposal_valid"]
+
+
+def box_regression_loss(outputs: dict, gt_boxes: torch.Tensor, p_gt: torch.Tensor,
+                        p_pos: torch.Tensor):
+    """Smooth-L1 of the box head's deltas to the matched proposals' ground
+    truths."""
+    roi_t = box_ops.boxes_to_deltas(outputs["proposal_boxes"], gt_boxes[p_gt])
+    rw = p_pos.float()[:, None]
+    return (_smooth_l1(outputs["box_deltas"] - roi_t) * rw).sum() / (rw.sum() * 4).clamp_min(1.0)
 
 
 def uoais_losses(outputs: dict, gt_boxes: torch.Tensor, gt_visible: torch.Tensor,
@@ -384,44 +437,17 @@ def uoais_losses(outputs: dict, gt_boxes: torch.Tensor, gt_visible: torch.Tensor
     |visible| / |amodal| >= 0.05).
 
     gt_boxes [N, 4] XYXY; gt_visible / gt_amodal [N, H, W]; gt_valid [N]."""
-    anchors = outputs["anchors"]
-    dev = anchors.device
-    n = gt_boxes.shape[0]
-    iou = torch.where(gt_valid[None, :], box_ops.box_iou(anchors, gt_boxes), 0.0)
-    best_iou, best_gt = iou.max(dim=1).values, torch.argmax(iou, dim=1)
-    # the best anchor of each ground truth is positive too; where two ground
-    # truths name one anchor the later one decides, as the reference's scatter
-    per_gt_best = torch.argmax(iou, dim=0)
-    last = torch.full((anchors.shape[0],), -1, dtype=torch.long, device=dev).scatter_reduce(
-        0, per_gt_best, torch.arange(n, device=dev), reduce="amax")
-    forced_pos = (last >= 0) & gt_valid[last.clamp_min(0)]
-    pos = (best_iou > rpn_pos_iou) | forced_pos
-    neg = best_iou < rpn_neg_iou
-
-    obj = outputs["rpn_objectness"]
-    t = pos.float()
-    fn_ = neg.float()
-    w = 0.5 * t / t.sum().clamp_min(1.0) + 0.5 * fn_ / fn_.sum().clamp_min(1.0)
-    loss_rpn_obj = (_bce_with_logits(obj, t) * w).sum()
-    target_deltas = box_ops.boxes_to_deltas(anchors, gt_boxes[best_gt])
-    pw = t[:, None]
-    loss_rpn_box = (_smooth_l1(outputs["rpn_deltas"] - target_deltas) * pw).sum() / \
-        (pw.sum() * 4).clamp_min(1.0)
-
-    props = outputs["proposal_boxes"]
-    prop_valid = outputs["proposal_valid"]
-    piou = torch.where(gt_valid[None, :], box_ops.box_iou(props, gt_boxes), 0.0)
-    p_best, p_gt = piou.max(dim=1).values, torch.argmax(piou, dim=1)
-    p_pos = (p_best > roi_pos_iou) & prop_valid
+    dev = outputs["anchors"].device
+    loss_rpn_obj, loss_rpn_box = rpn_losses(outputs, gt_boxes, gt_valid, rpn_pos_iou,
+                                            rpn_neg_iou)
+    p_gt, p_pos = match_proposals(outputs, gt_boxes, gt_valid, roi_pos_iou)
     cls = outputs["cls_logit"]
     tc = p_pos.float()
-    cv = prop_valid.float()
+    cv = outputs["proposal_valid"].float()
     cp, cn = tc * cv, (1.0 - tc) * cv
     cw = 0.25 * cp / cp.sum().clamp_min(1.0) + 0.75 * cn / cn.sum().clamp_min(1.0)
     loss_cls = (_bce_with_logits(cls, tc) * cw).sum()
-    roi_t = box_ops.boxes_to_deltas(props, gt_boxes[p_gt])
-    rw = tc[:, None]
-    loss_box = (_smooth_l1(outputs["box_deltas"] - roi_t) * rw).sum() / (rw.sum() * 4).clamp_min(1.0)
+    loss_box = box_regression_loss(outputs, gt_boxes, p_gt, p_pos)
 
     det_idx = outputs["det_index"]
     d_gt = p_gt[det_idx]

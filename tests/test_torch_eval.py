@@ -269,12 +269,6 @@ def test_run_eval_matches_jax(case, refiners, osd6, trees, tmp_path):
     assert set(got["seconds"]) >= {"annotation", "base", "metrics"}
 
 
-@pytest.mark.parametrize("name", ["grounded-sam", "detic"])
-def test_zoo_base_models_wait_for_item_14(name):
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tbase.build_base_model(name, "OSD")
-
-
 def test_fg_weights_from_npz_and_port_checkpoints(tmp_path):
     from quber_tpu_torch.train.checkpoint import save_params, save_quantized_params
 

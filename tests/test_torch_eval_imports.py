@@ -1,11 +1,13 @@
-"""The port needs none of OpenCV, imageio, Pillow, JAX or the JAX package:
-a fresh interpreter in which importing any of them fails imports every
-module of quber_tpu_torch and the port's scripts, and runs run_eval (the
-foreground filter included), tiny SAM wrappers (the mask-prompted refiner
-and the automatic generator on the depth), predict_torch.py and
-demo_torch.py on one small frame on the CPU, and the file-backed training path (the offline tools, the
-mapper with its augmentation, one step of train_net_torch.py and of
-train_fg_torch.py)."""
+"""The port needs none of OpenCV, imageio, Pillow, `regex`, JAX or the JAX
+package: a fresh interpreter in which importing any of them fails imports
+every module of quber_tpu_torch and the port's scripts, and runs run_eval
+(the foreground filter included), tiny SAM wrappers (the mask-prompted
+refiner and the automatic generator on the depth), the Detic wrapper with
+CLIP's tokenizer (the committed mini merges file) and a small CLIP text
+tower, predict_torch.py and demo_torch.py on one small frame on the CPU,
+the file-backed training path (the offline tools, the mapper with its
+augmentation, one step of train_net_torch.py and of train_fg_torch.py) and
+one train_eee step of the late-fusion model."""
 
 import os
 import subprocess
@@ -16,7 +18,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 SCRIPT = textwrap.dedent("""
     import importlib, pkgutil, sys, tempfile
-    for name in ("cv2", "imageio", "PIL", "jax", "jaxlib", "flax", "quber_tpu"):
+    for name in ("cv2", "imageio", "PIL", "regex", "jax", "jaxlib", "flax", "quber_tpu"):
         sys.modules[name] = None  # any import of it now raises ImportError
 
     import torch
@@ -57,6 +59,27 @@ SCRIPT = textwrap.dedent("""
         assert out[0].shape[1:] == (480, 640), out[0].shape
         out = SAMAutomaticBaseModel(depth_input=True, **tiny).predict(rgb, depth)
         assert out[0].shape[1:] == (480, 640), out[0].shape
+        # the open-vocabulary wrapper with CLIP's tokenizer and text tower
+        from quber_tpu_torch.models.open_vocab import DeticBaseModel
+
+        clip = dict(vocab_size=524, width=32, layers=1, heads=2, context_length=16,
+                    embed_dim=256)
+        detic = DeticBaseModel(bpe_path="tests/fixtures/clip_mini_merges.txt",
+                               clip_config=clip, device="cpu")
+        assert detic.text_embeds.shape == (13, 256)
+        out = detic.predict(rgb, depth)
+        assert out[0].shape[1:] == (480, 640), out[0].shape
+        # one step of the late-fusion error-estimation model
+        import itertools
+
+        from quber_tpu_torch.models.late_fusion import MODALITIES, LateFusionEncoderDecoder
+        from quber_tpu_torch.train.eee_train import train_eee
+
+        batch = {k: torch.rand(1, c, 16, 16) for k, c in MODALITIES}
+        batch["mask_target"] = batch["boundary_target"] = torch.rand(1, 3, 16, 16)
+        _, m = train_eee(LateFusionEncoderDecoder(), itertools.repeat(batch), 1, log_every=0,
+                         device="cpu")
+        assert torch.isfinite(m["total_loss"])
         with open(tmp + "/small.yaml", "w") as f:  # the int8 weights at 96x128
             f.write("model:\\n  height: 96\\n  width: 128\\n")
         common = ["--config-file", tmp + "/small.yaml", "--device", "cpu"]
@@ -81,7 +104,8 @@ SCRIPT = textwrap.dedent("""
         assert train_fg_torch.main(["--model", "cgnet", "--dataset-path", tmp + "/osd",
                                     "--max-iter", "1", "--batch", "1", "--device", "cpu",
                                     "--output-dir", tmp + "/fg"]) == 0
-    bad = [m for m in ("cv2", "imageio", "PIL", "jax", "quber_tpu") if sys.modules.get(m)]
+    bad = [m for m in ("cv2", "imageio", "PIL", "regex", "jax", "quber_tpu")
+           if sys.modules.get(m)]
     assert not bad, bad
     print("OK", len(names))
 """)

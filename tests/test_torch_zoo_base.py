@@ -132,9 +132,12 @@ def test_native_base_models_without_a_checkpoint_take_seed_0(monkeypatch, tmp_pa
     a = tbase.build_base_model("msmformer", "OSD", device="cpu")
     b = MSMFormerBaseModel(device="cpu")
     assert all(torch.equal(v, b.model.state_dict()[k]) for k, v in a.model.state_dict().items())
+    with pytest.raises(NotImplementedError) as err:
+        tbase.build_base_model("no-such-base", "OSD", device="cpu")
+    available = str(err.value).split("available: ")[1].split(", ")
     for name in ("msmformer", "msmformer-zoomin", "msmformer-pretrained", "uoaisnet",
                  "uoaisnet-amodal", "uoaisnet-pretrained", "uoisnet3d", "uoisnet3d-pretrained"):
-        assert name not in tbase.ZOO_BASE_MODELS
+        assert name in available
 
 
 class _TwoSlotUOIS(JUOIS3DBase):

@@ -9,6 +9,8 @@ PyTorch/CUDA port on rendered synthetic scenes (one GPU).
     python3 train_zoo_torch.py --model cascadepsp --size 256 --max-iter 2000 --output-dir output/cascadepsp_synth
     python3 train_zoo_torch.py --model rice --max-iter 1000 --output-dir output/rice_synth
     python3 train_zoo_torch.py --model samhq --max-iter 2000 --output-dir output/samhq_synth
+    python3 train_zoo_torch.py --model detic --max-iter 2000 --output-dir output/detic_synth
+    python3 train_zoo_torch.py --model gsam --max-iter 2000 --output-dir output/gsam_synth
 
 Counterpart of tools/train_zoo.py for quber_tpu_torch, with its flags,
 defaults and recipes. Each renders --size scenes from --seed, takes one
@@ -49,7 +51,23 @@ Adam at --lr over every variable:
     a boundary-perturbed mask prompt (* 20 - 10) and its target at stride
     4; a float32 SAMHQ at SAMHQ_SYNTH_ARCH from scratch, one encode and the
     4 mask-prompt decodes a step, focal + dice on the HQ mask, averaged
-    over the valid slots; arch.json beside the checkpoint.
+    over the valid slots; arch.json beside the checkpoint;
+  * detic: the raw BGR frames (0-255, what the wrapper feeds) and up to 12
+    objects a scene with their boxes, masks and colour classes (the hue
+    bucket of the mean albedo, COLOR_VOCAB: the renderer has no semantic
+    categories); the hash text tower over COLOR_VOCAB and a bfloat16
+    DeticDetector trained jointly by one Adam, the ground-truth boxes
+    spliced into the proposals, detic_losses. The FrozenBN tensors are
+    parameters of the reference's step and Adam moves them too; vocab.json
+    beside the checkpoint;
+  * gsam: the detic pool plus, per scene, SAM's 256x256 normalised frame,
+    the boxes scaled into it and the masks at 64x64 (OpenCV's float32
+    bilinear); the grounder (the detic recipe with the one phrase "A rigid
+    object.") and, interleaved, one step of a float32 SAMHQ at
+    SAMHQ_SYNTH_ARCH a step on a scene drawn by numpy's
+    default_rng(seed + 7): one encode, the valid boxes' decodes, focal +
+    dice on the HQ masks. One tree {text, grounder, sam}, vocab.json and
+    arch.json.
 Every --checkpoint-period steps the weights go to <output-dir>/ckpt (uoisnet3d:
 ckpt_dsn and ckpt_rrn) in the JAX package's variable layout (a save_params
 directory), and at the end also to <output-dir>/<model>[_dsn|_rrn]_int8.npz
@@ -64,9 +82,10 @@ either:
     QUBER_CASCADEPSP_CKPT=output/cascadepsp_synth/ckpt ... --refiner-model cascadepsp
     QUBER_RICE_CKPT=output/rice_synth/ckpt ... --refiner-model rice
     QUBER_SAMHQ_CKPT=output/samhq_synth/ckpt ... --refiner-model hq-sam
+    QUBER_DETIC_CKPT=output/detic_synth/ckpt ... --base-model detic
+    QUBER_GSAM_CKPT=output/gsam_synth/ckpt ... --base-model grounded-sam
 
-Runs on the GPU unless --device cpu. The other models of tools/train_zoo.py
-exit with a message naming their item in ROADMAP.md.
+Runs on the GPU unless --device cpu.
 """
 
 import argparse
@@ -315,8 +334,87 @@ def make_samhq_scenes(n, h, w, seed, depth_range, img_size=SAMHQ_SYNTH_ARCH["img
             for k, v in out.items()}
 
 
-# the pools' [n, H, W, C] images; the mask stacks [n, SLOTS, H, W] stay as they are
-IMAGE_KEYS = ("rgb", "xyz", "depth", "offsets", "image6", "rgbd")
+# 60-degree hue buckets in spectral order (+30 offset centres red at 0)
+COLOR_VOCAB = ["red object", "yellow object", "green object", "cyan object",
+               "blue object", "magenta object", "gray object"]
+
+
+def _color_class(rgb_mean):
+    """The COLOR_VOCAB class of a mean RGB albedo: gray below saturation
+    0.12, else its 60-degree hue bucket. The renderer has no semantic
+    categories; colour is the one text-describable attribute every object
+    carries."""
+    import colorsys
+
+    r, g, b = (float(x) / 255.0 for x in rgb_mean)
+    h, s, _ = colorsys.rgb_to_hsv(r, g, b)
+    if s < 0.12:
+        return 6
+    return int(((h * 360 + 30) % 360) // 60)
+
+
+def make_detic_scenes(n, h, w, seed, depth_range, slots=SLOTS):
+    """The open-vocabulary pool, stacked: "bgr" the raw BGR frame (float32
+    0-255, what the wrapper feeds), and per slot (the objects of 64 pixels
+    or more, in render order) "boxes", "classes" (_color_class), "masks"
+    and "valid"."""
+    import numpy as np
+
+    from quber_tpu_torch.data.synthetic import render_scene
+
+    rng = np.random.RandomState(seed)
+    out = {k: [] for k in ("bgr", "boxes", "classes", "masks", "valid")}
+    for _ in range(n):
+        rgb, _depth, vis = render_scene(rng, h, w, depth_range=depth_range)
+        boxes = np.zeros((slots, 4), np.float32)
+        classes = np.zeros((slots,), np.int32)
+        masks = np.zeros((slots, h, w), np.float32)
+        valid = np.zeros((slots,), bool)
+        for i, m in enumerate(vis[:slots]):
+            m = m > 0
+            if m.sum() < 64:
+                continue
+            ys, xs = np.where(m)
+            boxes[i] = [xs.min(), ys.min(), xs.max() + 1, ys.max() + 1]
+            classes[i] = _color_class(rgb[m].mean(axis=0))
+            masks[i] = m
+            valid[i] = True
+        out["bgr"].append(rgb[..., ::-1].astype(np.float32))
+        out["boxes"].append(boxes)
+        out["classes"].append(classes)
+        out["masks"].append(masks)
+        out["valid"].append(valid)
+    return {k: np.stack(v) for k, v in out.items()}
+
+
+def make_gsam_scenes(n, h, w, seed, depth_range, img_size=SAMHQ_SYNTH_ARCH["img_size"]):
+    """make_detic_scenes' pool and SAM's: "sam_img" the RGB resized to
+    img_size x img_size (OpenCV's float32 bilinear) and SAM-normalised,
+    channel-last; "sam_boxes" the boxes in that frame; "sam_tgt" the masks
+    at a quarter of img_size (the same resize)."""
+    import numpy as np
+    import torch
+
+    from quber_tpu_torch.models.sam_hq import SAM_PIXEL_MEAN, SAM_PIXEL_STD
+    from quber_tpu_torch.ops.preprocess import resize_linear_f32
+
+    def resize(x, size):
+        return resize_linear_f32(torch.from_numpy(np.ascontiguousarray(x, np.float32)),
+                                 (size, size)).numpy()
+
+    pool = make_detic_scenes(n, h, w, seed, depth_range)
+    s, q = img_size, img_size // 4
+    scale = np.asarray([s / w, s / h, s / w, s / h], np.float32)
+    img = [resize(bgr[..., ::-1].transpose(2, 0, 1), s).transpose(1, 2, 0) for bgr in pool["bgr"]]
+    pool["sam_img"] = ((np.stack(img) - SAM_PIXEL_MEAN) / SAM_PIXEL_STD).astype(np.float32)
+    pool["sam_boxes"] = pool["boxes"] * scale
+    pool["sam_tgt"] = np.stack([resize(m, q) for m in pool["masks"]])
+    return pool
+
+
+# the pools' [n, H, W, C] images; the mask stacks [n, SLOTS, H, W] and SAM's
+# channel-last frames stay as they are
+IMAGE_KEYS = ("rgb", "xyz", "depth", "offsets", "image6", "rgbd", "bgr")
 
 
 def stage(pool, device):
@@ -427,25 +525,34 @@ def make_msmformer_step(model, optimizer):
     return step
 
 
-def make_uoaisnet(seed, lr, device):
-    """A float32 UOAIS-Net with FrozenBN initialised from `seed` on
-    `device`, its FrozenBN tensors made parameters (the reference's step
-    differentiates and updates them), and Adam over all its parameters."""
-    import torch
+def train_frozen_bn(model):
+    """Make every FrozenBN tensor of `model` a parameter: the reference's
+    step differentiates its whole variable tree, FrozenBN's frozen_* leaves
+    among the params, and Adam updates them."""
     from torch import nn
 
     from quber_tpu_torch.models.layers import FrozenBatchNorm
-    from quber_tpu_torch.models.uoais_net import UOAISNet
 
-    model = UOAISNet()
-    model.reset_parameters(torch.Generator().manual_seed(seed))
     for mod in model.modules():
         if isinstance(mod, FrozenBatchNorm):
             for name in ("weight", "bias", "running_mean", "running_var"):
                 t = getattr(mod, name)
                 delattr(mod, name)
                 mod.register_parameter(name, nn.Parameter(t))
-    model = model.to(device).eval()
+    return model
+
+
+def make_uoaisnet(seed, lr, device):
+    """A float32 UOAIS-Net with FrozenBN initialised from `seed` on
+    `device`, its FrozenBN tensors made parameters, and Adam over all its
+    parameters."""
+    import torch
+
+    from quber_tpu_torch.models.uoais_net import UOAISNet
+
+    model = UOAISNet()
+    model.reset_parameters(torch.Generator().manual_seed(seed))
+    model = train_frozen_bn(model).to(device).eval()
     return model, torch.optim.Adam(model.parameters(), lr=lr)
 
 
@@ -671,6 +778,119 @@ def make_samhq_step(model, optimizer):
     return step
 
 
+def _open_vocab_model(seed, vocabulary, detector_key):
+    """A ModuleDict {"text": the hash tower over `vocabulary`, `detector_key`:
+    a DeticDetector in bfloat16, its FrozenBN
+    tensors made parameters}, both initialised from one generator seeded
+    `seed`, the vocabulary's token ids and mask as buffers (`text_ids`,
+    `text_mask`, not saved)."""
+    import torch
+    from torch import nn
+
+    from quber_tpu_torch.models.open_vocab import DeticDetector, TextEncoder, hash_tokenize
+
+    generator = torch.Generator().manual_seed(seed)
+    model = nn.ModuleDict({"text": TextEncoder(),
+                           detector_key: DeticDetector(dtype=torch.bfloat16)})
+    model["text"].reset_parameters(generator)
+    model[detector_key].reset_parameters(generator)
+    train_frozen_bn(model[detector_key])
+    ids, mask = hash_tokenize(vocabulary)
+    model.register_buffer("text_ids", torch.from_numpy(ids), persistent=False)
+    model.register_buffer("text_mask", torch.from_numpy(mask), persistent=False)
+    return model
+
+
+def make_detic(seed, lr, device):
+    """The detic recipe's model (_open_vocab_model over COLOR_VOCAB, the
+    detector under "detector") on `device` in eval mode, and one Adam over
+    every parameter."""
+    import torch
+
+    model = _open_vocab_model(seed, COLOR_VOCAB, "detector").to(device).eval()
+    return model, torch.optim.Adam(model.parameters(), lr=lr)
+
+
+def _detector_loss(model, pool, scene):
+    """(total, parts) of detic_losses on scene `scene`, the text tower's
+    embeddings and the detector's forward with the ground-truth boxes
+    spliced into the proposals."""
+    import torch
+
+    from quber_tpu_torch.models.open_vocab import detic_losses
+
+    detector = model["detector"] if "detector" in model else model["grounder"]
+    embeds = model["text"](model.text_ids, model.text_mask)
+    boxes, valid = pool["boxes"][scene], pool["valid"][scene]
+    out = detector(pool["bgr"][scene][None], embeds,
+                   gt_proposals=torch.where(valid[:, None], boxes, 0.0))
+    parts = detic_losses(out, boxes, pool["classes"][scene], pool["masks"][scene], valid)
+    return sum(parts.values()), parts
+
+
+def make_detic_step(model, optimizer):
+    """step(pool, scene) -> (loss, parts): one Adam update of the text tower
+    and the detector on scene `scene` of a staged make_detic_scenes pool."""
+    def step(pool, scene):
+        loss, parts = _detector_loss(model, pool, scene)
+        optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        optimizer.step()
+        return loss.detach(), {k: v.detach() for k, v in parts.items()}
+
+    return step
+
+
+def make_gsam(seed, lr, device):
+    """GroundedSAM's recipe model: _open_vocab_model over the reference's one
+    phrase (GROUNDING_PROMPT), the detector under "grounder", plus "sam", a
+    float32 SAMHQ at SAMHQ_SYNTH_ARCH initialised from `seed` +
+    3, on `device` in eval mode; one Adam over every parameter (the
+    reference's two Adams over disjoint parameters, each stepped once an
+    iteration, update alike)."""
+    import torch
+
+    from quber_tpu_torch.models.open_vocab import GROUNDING_PROMPT
+    from quber_tpu_torch.models.sam_hq import SAMHQ
+
+    model = _open_vocab_model(seed, [GROUNDING_PROMPT], "grounder")
+    model["sam"] = SAMHQ(**SAMHQ_SYNTH_ARCH)
+    model["sam"].reset_parameters(torch.Generator().manual_seed(seed + 3))
+    model = model.to(device).eval()
+    return model, torch.optim.Adam(model.parameters(), lr=lr)
+
+
+def make_gsam_step(model, optimizer, size=None, seed=7):
+    """step(pool, scene, sam_scene=None) -> (loss, parts): the grounder's
+    step on scene `scene` (its loss and parts) and SAM's on `sam_scene`,
+    drawn from numpy's default_rng(seed + 7) over `size` scenes unless
+    given (its loss as "sam_total"), then one Adam update of both."""
+    import numpy as np
+    import torch
+
+    from quber_tpu_torch.models.sam_hq import sam_hq_mask_loss
+
+    rng = np.random.default_rng(seed + 7)
+    sam = model["sam"]
+
+    def step(pool, scene, sam_scene=None):
+        if sam_scene is None:
+            sam_scene = int(rng.integers(0, size or pool["sam_img"].shape[0]))
+        loss, parts = _detector_loss(model, pool, scene)
+        embed, interm = sam.encode(pool["sam_img"][sam_scene][None])
+        masks = sam.decode_box(embed, interm, pool["sam_boxes"][sam_scene], False, True)[0]
+        tgt, ok = pool["sam_tgt"][sam_scene], pool["valid"][sam_scene].float()
+        per = torch.stack([sam_hq_mask_loss(masks[i], tgt[i][None]) for i in range(len(ok))])
+        sam_loss = (per * ok).sum() / ok.sum().clamp_min(1)
+        optimizer.zero_grad(set_to_none=True)
+        (loss + sam_loss).backward()
+        optimizer.step()
+        parts = dict(parts, sam_total=sam_loss)
+        return loss.detach(), {k: v.detach() for k, v in parts.items()}
+
+    return step
+
+
 RECIPES = {
     # model: (scene maker, model maker, step maker)
     "ucn": (make_labeled_scenes, make_ucn, make_ucn_step),
@@ -680,6 +900,8 @@ RECIPES = {
     "cascadepsp": (make_refine_crops, make_cascadepsp, make_cascadepsp_step),
     "rice": (make_rice_scenes, make_rice, make_rice_step),
     "samhq": (make_samhq_scenes, make_samhq, make_samhq_step),
+    "detic": (make_detic_scenes, make_detic, make_detic_step),
+    "gsam": (make_gsam_scenes, make_gsam, make_gsam_step),
 }
 
 
@@ -690,7 +912,7 @@ def step_options(args, device) -> dict:
     if args.model == "uoisnet3d":
         return {"sigma": args.gms_sigma, "delta": args.gms_delta,
                 "generator": torch.Generator(device).manual_seed(args.seed)}
-    if args.model == "cascadepsp":
+    if args.model in ("cascadepsp", "gsam"):
         return {"size": args.size, "seed": args.seed}
     return {}
 
@@ -702,11 +924,40 @@ def saved_modules(args, model) -> dict:
     return {"ckpt": model}
 
 
+def write_sidecars(args):
+    """What the evaluation wrappers read beside the checkpoint directory:
+    arch.json (samhq, gsam: the SAM architecture) and vocab.json (detic,
+    gsam: the text tower's vocabulary)."""
+    import json
+
+    from quber_tpu_torch.models.open_vocab import GROUNDING_PROMPT
+
+    files = {"samhq": {"arch.json": SAMHQ_SYNTH_ARCH},
+             "detic": {"vocab.json": COLOR_VOCAB},
+             "gsam": {"arch.json": SAMHQ_SYNTH_ARCH, "vocab.json": [GROUNDING_PROMPT]}}
+    for name, content in files.get(args.model, {}).items():
+        with open(os.path.join(args.output_dir, name), "w") as f:
+            json.dump(content, f)
+
+
+def jax_tree(module) -> dict:
+    """The module's weights as train() saves them, in the JAX package's
+    layout: its flax variable tree, or for a recipe of several parts (a
+    ModuleDict: {text, detector}, {text, grounder, sam}) a tree of the
+    parts' trees."""
+    from torch import nn
+
+    from quber_tpu_torch.models.from_jax import state_dict_to_jax
+
+    if isinstance(module, nn.ModuleDict):
+        return {k: state_dict_to_jax(m) for k, m in module.items()}
+    return state_dict_to_jax(module)
+
+
 def train(args, device):
     """The recipe of --model: render and stage the pool, train, save."""
     import torch
 
-    from quber_tpu_torch.models.from_jax import state_dict_to_jax
     from quber_tpu_torch.train.checkpoint import save_params, save_quantized_params
 
     make_pool, make_model, make_step = RECIPES[args.model]
@@ -721,11 +972,7 @@ def train(args, device):
              for name, module in saved_modules(args, model).items()}
     for ckpt_dir in saved:
         os.makedirs(ckpt_dir, exist_ok=True)
-    if args.model == "samhq":  # the evaluation wrapper rebuilds the architecture from it
-        import json
-
-        with open(os.path.join(args.output_dir, "arch.json"), "w") as f:
-            json.dump(SAMHQ_SYNTH_ARCH, f)
+    write_sidecars(args)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     timing = {"t0": time.time()}
@@ -741,7 +988,7 @@ def train(args, device):
 
     def save(it):
         for ckpt_dir, module in saved.items():
-            save_params(ckpt_dir, state_dict_to_jax(module), step=it)
+            save_params(ckpt_dir, jax_tree(module), step=it)
 
     fit_loop(step, args.size, args, save)
     if device.type == "cuda":
@@ -755,7 +1002,7 @@ def train(args, device):
     for ckpt_dir, module in saved.items():
         part = os.path.basename(ckpt_dir).removeprefix("ckpt")
         save_quantized_params(os.path.join(args.output_dir, f"{args.model}{part}_int8.npz"),
-                              state_dict_to_jax(module))
+                              jax_tree(module))
 
 
 def build_parser():
@@ -786,10 +1033,6 @@ def build_parser():
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.model not in RECIPES:
-        print(f"train_zoo_torch: --model {args.model} is not ported yet "
-              "(ROADMAP.md Queue 1 item 14)", file=sys.stderr)
-        return 2
 
     import torch
 
