@@ -249,8 +249,29 @@ Phases (any failure ends the run with a non-zero exit code):
      segments (the count equal, >= 99.5% of the labels); (e) the late-fusion
      encoder-decoder at 480x640 (batch 2) card against CPU, two train_eee
      steps card against CPU, 20 timed; the phase's seconds;
- 27. print a JSON line of the kernels' numbers (each row with the launches
-     of phases 20-26 beside those of earlier paths), the frame time,
+ 27. the reference-checkpoint seam: (a) the int8 flagship exported with
+     models/import_torch.export_mask_refiner to a detectron2 .pth, imported
+     by `python3 -m quber_tpu_torch.tools.import_checkpoint` in a subprocess
+     (its seconds), loaded through $QUBER_WEIGHTS (the state dict equal to
+     the archive's bit for bit), phase 4's 8 frames served through
+     predict() (per frame the same instance count and >= 99.5% of phase 4's
+     labels; one statistics, encode and group launch a frame, added to each
+     kernel row as `import`), then the quantize CLI on the imported
+     checkpoint: every array equal to weights/flagship_synth_int8.npz's;
+     (b) the activation-parity tool at 480x640 on those weights, float32
+     with TF32 off: >= 20 stages, each within 3e-4 of its peak, the worst
+     printed; (c) the parity drill on 4 rendered 480x640 frames (perturbed
+     GT -> the unfiltered refiner): an ok report, its Objects and Boundary F
+     and avg_refine_ms; (d) seeded CGNet, LMFFNet and UCN state dicts in the
+     reference layouts (tests/reference_twins.py) through the import CLI
+     (three subprocesses at once), loaded by name through
+     $QUBER_CGNET_CKPT / $QUBER_LMFFNET_CKPT (the filtered refiner's
+     foreground net) and $QUBER_UCN_CKPT (base ucn), on the first anchor
+     frame card against CPU in float32 (the foreground nets' argmax >= 99%
+     equal, as phase 14; UCN's count equal and >= 99.5% of the labels, as
+     phase 21(d)); TF32 restored after; the phase's seconds;
+ 28. print a JSON line of the kernels' numbers (each row with the launches
+     of phases 20-27 beside those of earlier paths), the frame time,
      and as the last line {"ok": true, "device": {...}}.
 Needs CUDA; it has no CPU mode.
 """
@@ -422,6 +443,13 @@ CLIP_MINI_MERGES = os.path.join("tests", "fixtures", "clip_mini_merges.txt")
 OPENVOCAB_THRESH = "0"
 LATE_FUSION_BATCH = 2
 LATE_FUSION_STEPS = 20
+# phase 27: the activation-parity tool's float32 tolerance (of each stage's
+# peak) and its stage count at 480x640; the drill's rendered frames; the
+# seeds of the CGNet / LMFFNet / UCN state dicts in the reference layouts
+SEAM_PARITY_ATOL = 3e-4
+SEAM_PARITY_STAGES = 20
+SEAM_DRILL_FRAMES = 4
+SEAM_SEED = 17
 # H100 SXM data sheet: HBM3 rate and fp32 rate outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
@@ -1630,12 +1658,11 @@ def checkpoint_evaluation(trained_dir, trained, root):
 
 
 def _run_clis(commands, cwd):
-    """Run root scripts of the repo on the card, each in a subprocess of its
-    own, all at once: their outputs."""
-    here = os.path.dirname(os.path.abspath(__file__))
-    procs = [subprocess.Popen([sys.executable, os.path.join(here, args[0]), *args[1:]],
-                              cwd=cwd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                              text=True) for args in commands]
+    """Run the repo's CLIs on the card (each command the interpreter's
+    arguments: a script's path, or -m and a module), each in a subprocess of
+    its own, all at once: their outputs."""
+    procs = [subprocess.Popen([sys.executable, *args], cwd=cwd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for args in commands]
     try:
         outs = [proc.communicate(timeout=600)[0] for proc in procs]
     finally:
@@ -1645,7 +1672,8 @@ def _run_clis(commands, cwd):
                 proc.wait()
     for args, proc, out in zip(commands, procs, outs):
         if proc.returncode != 0:
-            raise AssertionError(f"{args[0]} exited with {proc.returncode}: {out[-2000:]}")
+            raise AssertionError(f"{' '.join(args[:2])} exited with {proc.returncode}: "
+                                 f"{out[-2000:]}")
     return outs
 
 
@@ -1686,10 +1714,11 @@ def cli_phase(params, root, frames, card):
 
     t0 = time.perf_counter()
     out, demo_out = _run_clis([
-        ["predict_torch.py", "--rgb", rgb_path, "--depth", depth_path,
+        [os.path.join(here, "predict_torch.py"), "--rgb", rgb_path, "--depth", depth_path,
          "--masks", os.path.join(work, "masks.npy"), "--out", os.path.join(work, "refined.png"),
          "--config-file", cfg_path],
-        ["demo_torch.py", "--input", os.path.join(demo, "image_color", "*.png"),
+        [os.path.join(here, "demo_torch.py"),
+         "--input", os.path.join(demo, "image_color", "*.png"),
          "--depth-dir", os.path.join(demo, "disparity"), "--base-model", "gt",
          "--output", os.path.join(work, "vis"), "--config-file", cfg_path]], work)
     cli_s = time.perf_counter() - t0
@@ -3667,6 +3696,209 @@ def late_fusion(dev, card):
         raise AssertionError("late fusion: a loss on the card is not finite")
 
 
+def seam_round_trip(params, served, seam, card):
+    """Phase 27(a): the int8 flagship exported to a detectron2 .pth, imported
+    by the CLI, loaded through $QUBER_WEIGHTS, served on phase 4's frames and
+    quantized back. Returns (the launches of the serving, the .pth)."""
+    from quber_tpu_torch.models.from_jax import as_state_dict
+    from quber_tpu_torch.models.import_torch import export_mask_refiner
+    from quber_tpu_torch.ops import kernels
+    from quber_tpu_torch.predictor import MaskRefinerPredictor
+    from quber_tpu_torch.tools import quantize_checkpoint
+    from quber_tpu_torch.train.checkpoint import _BUNDLED, load_default_params
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    archive = as_state_dict(params)
+    pth = os.path.join(seam, "model_final.pth")
+    torch.save(export_mask_refiner(archive), pth)
+    out = os.path.join(seam, "imported")
+    t0 = time.perf_counter()
+    (log,) = _run_clis([["-m", "quber_tpu_torch.tools.import_checkpoint", "--model",
+                         "mask_refiner", "--torch", pth, "--out", out]], here)
+    seconds = time.perf_counter() - t0
+    print(f"phase 27(a): import CLI on the card in {seconds:.2f} s (process included): "
+          f"{log.strip().splitlines()[-1]} on {card}")
+    os.environ["QUBER_WEIGHTS"] = os.path.join(out, "ckpt")
+    try:
+        imported = load_default_params()
+    finally:
+        del os.environ["QUBER_WEIGHTS"]
+    got = as_state_dict(imported)
+    if set(got) != set(archive) or not all(torch.equal(got[k], archive[k]) for k in archive):
+        raise AssertionError("phase 27(a): the imported state dict is not the archive's")
+
+    frames, want = served
+    predictor = MaskRefinerPredictor(params=imported, device="cuda")
+    kernels.reset_launch_counts()
+    results = [predictor.predict(rgb, depth, list(masks))[0] for rgb, depth, masks in frames]
+    torch.cuda.synchronize()
+    launches = _launch_counts()
+    counts = [len(r.get("instances", {}).get("scores", [])) for r in results]
+    agree = [_label_agreement(r["panoptic_seg"][0], w["panoptic_seg"][0])
+             for r, w in zip(results, want)]
+    print(f"phase 27(a): the imported flagship through $QUBER_WEIGHTS served phase 4's "
+          f"{len(frames)} frames: instances {counts} (phase 4: "
+          f"{[len(w.get('instances', {}).get('scores', [])) for w in want]}), label agreement "
+          f"min {min(agree):.6f} (need >= {PANOPTIC_AGREEMENT}), launches {launches}")
+    for r, w, a in zip(results, want, agree):
+        if len(r.get("instances", {}).get("scores", [])) != \
+                len(w.get("instances", {}).get("scores", [])) or a < PANOPTIC_AGREEMENT:
+            raise AssertionError("phase 27(a): the imported flagship serves otherwise")
+    for name in ("instance_stats", "encode_initial_masks", "group_pixels"):
+        if launches[name] != len(frames):
+            raise AssertionError(f"phase 27(a): {name} launched {launches[name]} times for "
+                                 f"{len(frames)} frames")
+
+    npz = os.path.join(seam, "flagship_int8.npz")
+    t0 = time.perf_counter()
+    quantize_checkpoint.main([os.path.join(out, "ckpt"), npz])
+    quantize_s = time.perf_counter() - t0
+    with np.load(_BUNDLED) as ref, np.load(npz) as got:
+        same = sorted(ref.files) == sorted(got.files) and all(
+            got[k].dtype == ref[k].dtype and np.array_equal(got[k], ref[k]) for k in ref.files)
+        n = len(ref.files)
+    print(f"phase 27(a): quantize CLI in {quantize_s:.2f} s: {n} arrays, every one equal to "
+          f"weights/flagship_synth_int8.npz's: {same}")
+    if not same:
+        raise AssertionError("phase 27(a): the re-quantized archive differs")
+    return launches, pth
+
+
+def seam_parity(pth, card):
+    """Phase 27(b): the activation-parity tool at 480x640 on the flagship's
+    weights, float32 with TF32 off, on the card."""
+    from quber_tpu_torch.models.import_torch import load_torch_checkpoint
+    from quber_tpu_torch.models.mask_refiner import MaskRefinerConfig
+    from quber_tpu_torch.tools.activation_parity import parity
+
+    rng = np.random.RandomState(0)
+    images = (rng.rand(1, H, W, 6) * 255).astype(np.float32)
+    offset = rng.rand(1, H, W, 3).astype(np.float32)
+    t0 = time.perf_counter()
+    report = parity(load_torch_checkpoint(pth), MaskRefinerConfig(), images, offset,
+                    SEAM_PARITY_ATOL, torch.device("cuda", 0))
+    seconds = time.perf_counter() - t0
+    bad = [k for k, v in report.items() if v["status"] != "ok"]
+    worst = max(report, key=lambda k: report[k].get("max_abs", float("inf")) /
+                max(1.0, report[k].get("ref_max_abs", 1.0)))
+    w = report[worst]
+    print(f"phase 27(b): activation parity at {H}x{W} on the card (float32, TF32 off): "
+          f"{len(report) - len(bad)}/{len(report)} stages within {SEAM_PARITY_ATOL} of their "
+          f"peak; worst {worst}: max |d| {w.get('max_abs', float('nan')):.3e} at peak "
+          f"{w.get('ref_max_abs', float('nan')):.3e}; {seconds:.2f} s on {card}")
+    if bad or len(report) < SEAM_PARITY_STAGES:
+        raise AssertionError(f"phase 27(b): activation parity failed: {bad}")
+
+
+def seam_drill(pth, seam, card):
+    """Phase 27(c): the parity drill on the card, SEAM_DRILL_FRAMES rendered
+    480x640 frames, base perturbed-gt, refiner maskrefiner-nofilter."""
+    from quber_tpu_torch.tools import parity_drill
+
+    out = os.path.join(seam, "drill.json")
+    t0 = time.perf_counter()
+    rc = parity_drill.main(["--torch", pth, "--synthetic-n", str(SEAM_DRILL_FRAMES), "--limit",
+                            str(SEAM_DRILL_FRAMES), "--workdir", os.path.join(seam, "drill"),
+                            "--out", out])
+    seconds = time.perf_counter() - t0
+    with open(out) as f:
+        report = json.load(f)
+    ev = report["eval"]
+    print(f"phase 27(c): parity drill on the card: ok {report['ok']}, "
+          f"{report['parity']['n_stages']} stages (worst {report['parity']['worst_stage']}, "
+          f"max |d| {report['parity']['worst_max_abs']:.3e}); {SEAM_DRILL_FRAMES} frames: "
+          + ", ".join(f"{stage} Objects F {ev[stage]['Objects F-measure']:.4f} Boundary F "
+                      f"{ev[stage]['Boundary F-measure']:.4f}" for stage in ("initial", "refined"))
+          + f"; avg_refine_ms {ev['avg_refine_ms']:.3f}; {seconds:.2f} s on {card}")
+    if rc != 0 or not report["ok"]:
+        raise AssertionError("phase 27(c): the parity drill failed")
+
+
+def _reference_twins():
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "reference_twins", os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                                        "reference_twins.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def seam_zoo(anchor, seam, card):
+    """Phase 27(d): CGNet, LMFFNet and UCN state dicts in the reference
+    layouts through the import CLI, loaded by name from their variables and
+    run on the first anchor frame, card against CPU."""
+    from quber_tpu_torch.evaluation.base_models import build_base_model
+    from quber_tpu_torch.evaluation.harness import masks_to_label_image
+    from quber_tpu_torch.evaluation.refiner_models import build_refiner_model
+    from quber_tpu_torch.ops.preprocess import load_rgbd
+
+    twins = _reference_twins()
+    made = {"cgnet": twins.cgnet_twin(), "lmffnet": twins.lmffnet_twin(),
+            "ucn": twins.ucn_twin(embed=64)}
+    commands = []
+    for i, (name, module) in enumerate(made.items()):
+        path = os.path.join(seam, f"{name}.pth")
+        torch.save({"model": {k: torch.from_numpy(v) for k, v in
+                              twins.seeded_state(module, SEAM_SEED + i).items()}}, path)
+        commands.append(["-m", "quber_tpu_torch.tools.import_checkpoint", "--model", name,
+                         "--torch", path, "--out", os.path.join(seam, name)])
+    t0 = time.perf_counter()
+    _run_clis(commands, os.path.dirname(os.path.abspath(__file__)))
+    seconds = time.perf_counter() - t0
+    print(f"phase 27(d): {len(commands)} import CLIs at once on the card in {seconds:.2f} s")
+    rgb, depth = anchor
+    for name, env in (("cgnet", "QUBER_CGNET_CKPT"), ("lmffnet", "QUBER_LMFFNET_CKPT")):
+        os.environ[env] = os.path.join(seam, name, "ckpt")
+        try:
+            fg = {device: build_refiner_model("maskrefiner", "OSD", device=device).fg_predictor
+                  for device in ("cuda", "cpu")}
+        finally:
+            del os.environ[env]
+        x = fg["cuda"].inputs(*load_rgbd(rgb, depth, fg["cuda"].size)[:2])
+        got, want = (fg[d].logits(x).float().cpu() for d in ("cuda", "cpu"))
+        agree = float((got.argmax(dim=0) == want.argmax(dim=0)).float().mean())
+        gap = float((got - want).abs().max() / want.abs().max())
+        print(f"phase 27(d): {name} through ${env} ({type(fg['cuda'].model).__name__}) on "
+              f"anchor frame 1, float32: argmax equal to the CPU's on {agree:.6f} (need >= "
+              f"{FG_AGREEMENT}), max |card - CPU| {gap:.3g} of max |CPU|")
+        if not bool(torch.isfinite(got).all()) or agree < FG_AGREEMENT:
+            raise AssertionError(f"phase 27(d): {name} card and CPU disagree")
+    os.environ["QUBER_UCN_CKPT"] = os.path.join(seam, "ucn", "ckpt")
+    try:
+        out = {device: build_base_model("ucn", "OSD", device=device).predict(rgb, depth)[0]
+               for device in ("cuda", "cpu")}
+    finally:
+        del os.environ["QUBER_UCN_CKPT"]
+    zero = np.zeros((H, W), np.int32)
+    agree = _label_agreement(masks_to_label_image(out["cuda"], zero),
+                             masks_to_label_image(out["cpu"], zero))
+    print(f"phase 27(d): ucn through $QUBER_UCN_CKPT on anchor frame 1: instances card "
+          f"{len(out['cuda'])} CPU {len(out['cpu'])}, label agreement {agree:.6f} (need >= "
+          f"{PANOPTIC_AGREEMENT})")
+    if len(out["cuda"]) != len(out["cpu"]) or agree < PANOPTIC_AGREEMENT:
+        raise AssertionError("phase 27(d): ucn card and CPU disagree")
+
+
+def seam_phase(params, served, frames, card, work):
+    """Phase 27: the reference-checkpoint seam on the card. Returns the
+    launches of 27(a)'s serving."""
+    t0 = time.perf_counter()
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    seam = os.path.join(work, "seam")
+    os.makedirs(seam)
+    try:
+        launches, pth = seam_round_trip(params, served, seam, card)
+        seam_parity(pth, card)
+        seam_drill(pth, seam, card)
+        seam_zoo(next(iter(frames)), seam, card)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    print(f"phase 27: {time.perf_counter() - t0:.1f} s on {card}")
+    return launches
+
+
 def _elapsed(what):
     print(f"[{time.perf_counter() - _T0:.1f} s] {what} done", flush=True)
 
@@ -3701,6 +3933,7 @@ def main() -> int:
     check_edge_cases(dev)
 
     params, frames, results, times, launches = serve_frames(dev)
+    served = (frames, results)
     for row in rows + [stats_row]:
         row["launches"] = launches[row["name"]]
         row["kernel_ms"] = row["ms"]
@@ -3764,6 +3997,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         zoo_launches.update(openvocab_phase(root, params, frames, dev, card, work))
         _elapsed("phase 26")
+        torch.cuda.empty_cache()
+        import_launches = seam_phase(params, served, frames, card, work)
+        _elapsed("phase 27")
     # the serving shapes' entries: launches on the single-frame CLI path
     # (predict, K = 24) and on the benchmark's batches of 16
     for row in rows:
@@ -3789,6 +4025,10 @@ def main() -> int:
                              "path": f"{FILE_STEPS} device-target steps from UOAIS-Sim files"}
         # the MSMFormer / UOAIS-Net / UOIS-Net-3D / SAM / Detic /
         # GroundedSAM -> refiner evaluations (phases 23(c)-26(c))
+        # predict() of phase 4's frames with the flagship imported from a
+        # detectron2 .pth (phase 27(a))
+        row["import"] = {"launches": import_launches[name],
+                         "path": f"predict() of {N_FRAMES} frames, flagship from the import CLI"}
         row["zoo_eval"] = {base: {"launches_per_image": n[0][name],
                                   "launches_streamed": n[1][name],
                                   "path": f"run_eval, base {base}, {EVAL_FRAMES} frames"}

@@ -22,10 +22,12 @@ checkpoint, as in the reference. The reference's released checkpoints:
     foreground filters its masks;
   * `uoisnet3d-pretrained`: $QUBER_UOIS_DSN_CKPT and $QUBER_UOIS_RRN_CKPT
     (each a random init without it);
-each a reference .pth (read through models/import_zoo) or a save_params
-directory of the port's state dict. `sam` and `sam-depth` are SAM's
-automatic mask generator (models/sam_refiner) on the RGB or on the
-normalised depth, at a seeded random init. The open-vocabulary base
+each a reference .pth (read through models/import_zoo) or a checkpoint
+directory of the port: the `<out>/ckpt` of tools/import_checkpoint (the
+module's flax-layout tree), or a save_params directory of its state dict.
+`sam` and `sam-depth` are SAM's automatic mask generator
+(models/sam_refiner) on the RGB or on the normalised depth, at a seeded
+random init. The open-vocabulary base
 segmenters (models/open_vocab):
   * `detic`: $QUBER_DETIC_CKPT (the ckpt directory of train_zoo_torch.py
     --model detic, its {text, detector} tree, with vocab.json beside the
@@ -141,24 +143,21 @@ def _restore_or_none(path: str):
 
 def _reference_weights(path: str, importer):
     """The port's state dict from a reference .pth (through `importer`) or
-    from a save_params directory holding the port's state dict. The JAX
-    package's orbax directory of an imported checkpoint cannot be read: its
-    flax layout flattens and transposes where the reference does not, so the
-    reference .pth is what to pass."""
+    from a checkpoint directory of the port: tools/import_checkpoint's
+    output (a flax-layout tree) or a save_params directory holding the
+    port's state dict. The JAX package's orbax directory cannot be read."""
     import torch
 
     if path.endswith((".pth", ".pt")):
         from quber_tpu_torch.models.import_zoo import load_reference_checkpoint
 
         return importer(load_reference_checkpoint(path))
+    from quber_tpu_torch.models.from_jax import state_dict_from_jax
     from quber_tpu_torch.train.checkpoint import load_eval_params
 
-    try:
-        params = load_eval_params(path)
-    except NotImplementedError as e:
-        raise NotImplementedError(
-            f"{path} is an orbax checkpoint of the JAX package; pass the reference's .pth "
-            "(read through quber_tpu_torch.models.import_zoo) instead") from e
+    params = load_eval_params(path)
+    if any(isinstance(v, dict) for v in params.values()):
+        return state_dict_from_jax(params)
     return {k: torch.as_tensor(v) for k, v in params.items()}
 
 

@@ -184,7 +184,9 @@ def load_fg_params(path: str):
     except FileNotFoundError:
         raise NotImplementedError(
             f"{path}: the port reads foreground weights as .npz or as its own checkpoint "
-            "directory; orbax checkpoints are not read (ROADMAP.md, Queue 1)") from None
+            "directory, not orbax; import a reference .pth with `python3 -m "
+            "quber_tpu_torch.tools.import_checkpoint --model cgnet|lmffnet` and pass its "
+            "<out>/ckpt") from None
 
 
 def build_refiner_model(name: str, dataset: str, config=None, params=None,

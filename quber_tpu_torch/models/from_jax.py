@@ -130,6 +130,7 @@ _TO_JAX = {
     RunningBatchNorm: ("BatchNorm_0", {"weight": "scale", "bias": "bias",
                                        "running_mean": "mean", "running_var": "var"}),
     LayerNorm: (None, {"weight": "scale", "bias": "bias"}),
+    nn.LayerNorm: (None, {"weight": "scale", "bias": "bias"}),
     TokenLayerNorm: (None, {"weight": "scale", "bias": "bias"}),
     LayerNorm2d: (None, {"weight": "weight", "bias": "bias"}),
 }

@@ -10,9 +10,10 @@ models/uoais_net_pretrained.UOAISNetPretrained, `import_uois_dsn` and
 `import_uois_rrn` models/uois_net_pretrained.PretrainedDSN and
 PretrainedRRN, `import_cascadepsp` models/cascadepsp.PSPNetUOAIS and
 `import_sam_hq` models/sam_hq.SAMHQ (its transposed convolutions' kernels
-[in, out, 2, 2] -> [out, in, 2, 2], the one transpose) and
-`import_clip_text` models/clip_text.CLIPTextEncoder. Every key of the
-checkpoint
+[in, out, 2, 2] -> [out, in, 2, 2], the one transpose),
+`import_clip_text` models/clip_text.CLIPTextEncoder, `import_cgnet`
+models/cgnet.CGNet, `import_lmffnet` models/lmffnet.LMFFNet and
+`import_ucn` models/ucn.UCNEmbeddingNet. Every key of the checkpoint
 must be mapped (or be a known buffer that carries no network state), else
 KeyError names the ones left (strict, the default).
 """
@@ -71,7 +72,7 @@ class _Builder:
 
 
 # ---------------------------------------------------------------------------
-# MSMFormer (the released "pretrained" meta-architecture)
+# UCN's ResNet-34-8s branches (UCN itself, and MSMFormer's backbone)
 # ---------------------------------------------------------------------------
 
 _RESNET34_BLOCKS = (3, 4, 6, 3)
@@ -104,6 +105,133 @@ def detect_ucn_prefixes(state_dict: dict) -> tuple[str, str]:
     if any(h in cands[0].lower() for h in ("depth", "xyz", "d_")):
         return cands[1], cands[0]
     return cands[0], cands[1]
+
+
+def import_ucn(state_dict: dict, strict: bool = True, rgb_prefix: str | None = None,
+               depth_prefix: str | None = None) -> dict:
+    """A UCN checkpoint (two torchvision-named ResNet-34-8s branches, each
+    with its 1x1 `fc` embedding head; DataParallel's `module.` stripped) ->
+    UCNEmbeddingNet's state dict. The branch prefixes are found from the
+    keys unless both are given."""
+    sd = {k.removeprefix("module."): v for k, v in state_dict.items()}
+    if rgb_prefix is None or depth_prefix is None:
+        rgb_prefix, depth_prefix = detect_ucn_prefixes(sd)
+    b = _Builder(sd)
+    for branch, pfx in (("rgb_branch", rgb_prefix), ("depth_branch", depth_prefix)):
+        _ucn_trunk(b, [branch, "trunk"], pfx)
+        b.dense([branch, "fc"], f"{pfx}fc")
+    return b.result(strict)
+
+
+# ---------------------------------------------------------------------------
+# The foreground nets: CGNet (rgbd_fg.pth) and LMFFNet (rgbd_lmffnet.pth),
+# each the `model` entry of its checkpoint
+# ---------------------------------------------------------------------------
+
+
+def _prelu(b, path, tkey):
+    b.param(path, "weight", f"{tkey}.weight")
+
+
+def _cg_bnprelu(b, path, tkey):
+    b.bn(path + ["bn"], f"{tkey}.bn")
+    _prelu(b, path + ["act"], f"{tkey}.act")
+
+
+def _cg_convbnprelu(b, path, tkey):
+    b.dense(path + ["conv"], f"{tkey}.conv")
+    _cg_bnprelu(b, path, tkey)
+
+
+def _cg_block(b, path, tkey, down: bool):
+    _cg_convbnprelu(b, path + ["conv1x1"], f"{tkey}.conv1x1")
+    b.dense(path + ["f_loc"], f"{tkey}.F_loc.conv")
+    b.dense(path + ["f_sur"], f"{tkey}.F_sur.conv")
+    if down:
+        _cg_bnprelu(b, path, tkey)
+        b.dense(path + ["reduce"], f"{tkey}.reduce.conv")
+    else:
+        _cg_bnprelu(b, path + ["bn_prelu"], f"{tkey}.bn_prelu")
+    b.dense(path + ["f_glo", "fc1"], f"{tkey}.F_glo.fc.0")
+    b.dense(path + ["f_glo", "fc2"], f"{tkey}.F_glo.fc.2")
+
+
+def import_cgnet(state_dict: dict, m: int = 3, n: int = 21, strict: bool = True) -> dict:
+    """A Context_Guided_Network state dict (level1_0-2, b1, level2_0 and the
+    level2 ModuleList, bn_prelu_2, level3_0 and level3, bn_prelu_3, the
+    classifier Sequential) -> CGNet(m=m, n=n)'s state dict."""
+    b = _Builder(state_dict)
+    for i in range(3):
+        _cg_convbnprelu(b, [f"level1_{i}"], f"level1_{i}")
+    _cg_bnprelu(b, ["b1"], "b1")
+    _cg_block(b, ["level2_0"], "level2_0", down=True)
+    for i in range(m - 1):
+        _cg_block(b, [f"level2_{i + 1}"], f"level2.{i}", down=False)
+    _cg_bnprelu(b, ["bn_prelu_2"], "bn_prelu_2")
+    _cg_block(b, ["level3_0"], "level3_0", down=True)
+    for i in range(n - 1):
+        _cg_block(b, [f"level3_{i + 1}"], f"level3.{i}", down=False)
+    _cg_bnprelu(b, ["bn_prelu_3"], "bn_prelu_3")
+    b.dense(["classifier"], "classifier.0.conv")
+    return b.result(strict)
+
+
+def _lm_bnprelu(b, path, tkey):
+    b.bn(path + ["bn"], f"{tkey}.bn")
+    _prelu(b, path + ["act"], f"{tkey}.acti")
+
+
+def _lm_conv(b, path, tkey, bn_acti: bool = False):
+    b.dense(path + ["conv"], f"{tkey}.conv")
+    if bn_acti:
+        _lm_bnprelu(b, path + ["bn_prelu"], f"{tkey}.bn_prelu")
+
+
+def _lm_semb(b, path, tkey):
+    _lm_conv(b, path + ["conv3x3"], f"{tkey}.conv3x3", True)
+    _lm_conv(b, path + ["dconv_left"], f"{tkey}.dconv_left", True)
+    _lm_conv(b, path + ["dconv_right"], f"{tkey}.dconv_right", True)
+    _lm_conv(b, path + ["resume_3x3"], f"{tkey}.conv3x3_resume.conv3x3", True)
+    _lm_conv(b, path + ["resume_1x1"], f"{tkey}.conv3x3_resume.conv1x1_resume")
+    _lm_bnprelu(b, path + ["bn_out"], f"{tkey}.bn_relu_1")
+
+
+def _lm_ffmb(b, path, tkey):
+    b.dense(path + ["pmca", "conv2x2"], f"{tkey}.PMCA.conv2x2.conv")
+    b.dense(path + ["pmca", "se", "fc1"], f"{tkey}.PMCA.SE_Block.fc.0")
+    b.param(path + ["pmca", "se"], "prelu_alpha", f"{tkey}.PMCA.SE_Block.fc.1.weight")
+    b.dense(path + ["pmca", "se", "fc2"], f"{tkey}.PMCA.SE_Block.fc.2")
+    _lm_bnprelu(b, path + ["bn_prelu"], f"{tkey}.bn_prelu")
+    _lm_conv(b, path + ["conv1x1"], f"{tkey}.conv1x1")
+
+
+def import_lmffnet(state_dict: dict, block_1: int = 3, block_2: int = 8,
+                   strict: bool = True) -> dict:
+    """An LMFFNet state dict (the Init_Block Sequential, FFM_A, downsample_1,
+    SEM_B_Block1's SEM_Block_1{i}, FFM_B1, downsample_2, SEM_B_Block2,
+    FFM_B2, MAD) -> LMFFNet(block_1=block_1, block_2=block_2)'s state dict."""
+    b = _Builder(state_dict)
+    for i in range(3):
+        _lm_conv(b, [f"init_{i}"], f"Init_Block.init_conv.{i}", True)
+    _lm_bnprelu(b, ["ffm_a", "bn_prelu"], "FFM_A.bn_prelu")
+    _lm_conv(b, ["ffm_a", "conv1x1"], "FFM_A.conv1x1")
+    for k, blocks in ((1, block_1), (2, block_2)):
+        _lm_conv(b, [f"downsample_{k}", "conv3x3"], f"downsample_{k}.conv3x3")
+        _lm_bnprelu(b, [f"downsample_{k}", "bn_prelu"], f"downsample_{k}.bn_prelu")
+        for i in range(blocks):
+            _lm_semb(b, [f"sem_b{k}_{i}"], f"SEM_B_Block{k}.SEM_B_Block.SEM_Block_{k}{i}")
+        _lm_ffmb(b, [f"ffm_b{k}"], f"FFM_B{k}")
+    for port, ref, bn_acti in (("mid_1x1", "mid_layer_1x1", False),
+                               ("deep_1x1", "deep_layer_1x1", False),
+                               ("dw1", "DwConv1", True), ("pw1", "PwConv1", False),
+                               ("dw2", "DwConv2", True), ("pw2", "PwConv2", False)):
+        _lm_conv(b, ["mad", port], f"MAD.{ref}", bn_acti)
+    return b.result(strict)
+
+
+# ---------------------------------------------------------------------------
+# MSMFormer (the released "pretrained" meta-architecture)
+# ---------------------------------------------------------------------------
 
 
 def _mha(b, path, tkey):

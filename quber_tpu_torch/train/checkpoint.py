@@ -165,7 +165,10 @@ def load_eval_params(path: str):
       * a `save_params` directory: the dict it holds (a flax-layout tree).
     MaskRefinerPredictor takes either form. An orbax directory written by
     the JAX package cannot be read here (the card's machine has no orbax):
-    convert it first with the JAX package's `save_quantized_params`."""
+    import the reference .pth with the port's CLI
+    (`python3 -m quber_tpu_torch.tools.import_checkpoint`), whose output is
+    a save_params directory, or convert the orbax directory with the JAX
+    package's `save_quantized_params`."""
     if path.endswith(".npz"):
         return load_quantized_params(path)
     payload = _load_latest(path, None)
@@ -175,9 +178,11 @@ def load_eval_params(path: str):
             for name in os.listdir(path))
         if orbax:
             raise NotImplementedError(
-                f"{path} is an orbax checkpoint of the JAX package; convert it to an int8 "
-                "archive with quber_tpu.train.checkpoint.save_quantized_params "
-                "(where orbax is installed) and pass the .npz")
+                f"{path} is an orbax checkpoint of the JAX package; import the reference "
+                "checkpoint with `python3 -m quber_tpu_torch.tools.import_checkpoint --torch "
+                "<.pth> --out <dir>` and pass <dir>/ckpt, or convert this directory to an int8 "
+                "archive with quber_tpu.train.checkpoint.save_quantized_params (where orbax "
+                "is installed) and pass the .npz")
         raise FileNotFoundError(f"no finished checkpoint under {path}")
     if "model" in payload:  # save_state
         return payload["model"]

@@ -7,7 +7,8 @@ CLIP's tokenizer (the committed mini merges file) and a small CLIP text
 tower, predict_torch.py and demo_torch.py on one small frame on the CPU,
 the file-backed training path (the offline tools, the mapper with its
 augmentation, one step of train_net_torch.py and of train_fg_torch.py) and
-one train_eee step of the late-fusion model."""
+one train_eee step of the late-fusion model, and the reference-checkpoint
+seam: the parity drill on a seeded flagship and the import CLI."""
 
 import os
 import subprocess
@@ -104,6 +105,17 @@ SCRIPT = textwrap.dedent("""
         assert train_fg_torch.main(["--model", "cgnet", "--dataset-path", tmp + "/osd",
                                     "--max-iter", "1", "--batch", "1", "--device", "cpu",
                                     "--output-dir", tmp + "/fg"]) == 0
+        # the reference-checkpoint seam: the parity drill on a seeded flagship
+        # in the detectron2 layout, and the import CLI
+        from quber_tpu_torch.tools import activation_parity, import_checkpoint, parity_drill
+
+        torch.save(activation_parity.random_state_dict(MaskRefinerConfig(), 0), tmp + "/m.pth")
+        assert parity_drill.main(["--torch", tmp + "/m.pth", "--device", "cpu",
+                                  "--parity-size", "32", "32", "--eval-size", "96", "128",
+                                  "--dataset-path", tmp + "/osd", "--limit", "1",
+                                  "--workdir", tmp + "/drill", "--out", tmp + "/drill.json"]) == 0
+        assert import_checkpoint.main(["--torch", tmp + "/m.pth", "--out", tmp + "/imported",
+                                       "--device", "cpu"]) == 0
     bad = [m for m in ("cv2", "imageio", "PIL", "regex", "jax", "quber_tpu")
            if sys.modules.get(m)]
     assert not bad, bad
