@@ -270,10 +270,39 @@ Phases (any failure ends the run with a non-zero exit code):
      frame card against CPU in float32 (the foreground nets' argmax >= 99%
      equal, as phase 14; UCN's count equal and >= 99.5% of the labels, as
      phase 21(d)); TF32 restored after; the phase's seconds;
- 28. print a JSON line of the kernels' numbers (each row with the launches
-     of phases 20-27 beside those of earlier paths), the frame time,
+ 28. data parallelism: (a) two gloo ranks sharing cuda:0 (torchrun, this
+     script's --dp-worker mode; NCCL refuses two ranks on one device), the
+     flagship at 480x640 from the int8 weights with dropout 0 on a pool of
+     rendered scenes, DP_STEPS device-target steps at a global batch of
+     BATCH (half a rank), against one process on the whole batch on the
+     card from the same state: each loss within DP_LOSS_RTOL at every step,
+     the two ranks' losses equal and their states (parameters, statistics,
+     Adam's moments) bit-equal after every step by checksums of the bits,
+     each trainable tensor's update (the conv biases ahead of a BatchNorm
+     aside, as in phase 12) and each BatchNorm statistic's with cosine >=
+     0.999 against one process's, two statistics launches and one batched
+     encode launch a rank a step; ms a step printed, not gated; (b)
+     train_net_torch.py --synthetic --device-targets from the int8 weights
+     at 240x320 under torchrun with NCCL at world size 1 against its main()
+     in this process, DP_CLI_STEPS steps and then --resume for one more:
+     every loss step by step within DP_CLI_RTOL; (c) predict_batch_stream
+     and stage_frames + predict_batch_stream_staged on a two-replica mesh on
+     cuda:0 over phase 7's frames at B = BATCH: panoptic maps, counts and
+     scores (rtol 1e-6) of predict_batch on the replicas' sub-batches, the
+     counts and >= 99.5% of the labels of phase 7's predict_batch at B =
+     BATCH, one launch of each batched kernel per replica per batch;
+     frames/s printed beside phase 8's, not gated; (d) DP_EEE_STEPS
+     train_eee steps of the late-fusion model on the two ranks against one
+     process on the whole batch: losses within DP_LOSS_RTOL; the phase's
+     seconds;
+ 29. print a JSON line of the kernels' numbers (each row with the launches
+     of phases 20-28 beside those of earlier paths), the frame time,
      and as the last line {"ok": true, "device": {...}}.
 Needs CUDA; it has no CPU mode.
+
+    python3 chip_smoke.py --dp-worker DIR
+
+is phase 28's rank, launched by the phase itself through torchrun.
 """
 
 from __future__ import annotations
@@ -427,7 +456,8 @@ OPENVOCAB_SEED = 15  # phase 26's inits
 # float32 rounding can still reorder two proposals or detections whose
 # scores nearly tie: a survey over these further inits, each on its own
 # anchor frame, normalised and raw, prints how often (not gated)
-DETECTOR_SURVEY_SEEDS = tuple(range(16, 28))
+# (each init costs two CPU forwards of the detector at 480x640)
+DETECTOR_SURVEY_SEEDS = tuple(range(16, 22))
 DETECTOR_PIXEL_MEAN = np.asarray([103.53, 116.28, 123.675], np.float32)  # BGR
 DETECTOR_PIXEL_STD = np.asarray([57.375, 57.12, 58.395], np.float32)
 OPENVOCAB_RTOL = {"detector": 1e-3, "clip": SAM_RTOL, "grounded-sam": 1e-3,
@@ -450,6 +480,24 @@ SEAM_PARITY_ATOL = 3e-4
 SEAM_PARITY_STAGES = 20
 SEAM_DRILL_FRAMES = 4
 SEAM_SEED = 17
+# phase 28: data parallelism. Two gloo ranks share cuda:0 (NCCL refuses two
+# ranks on one device); the flagship at 480x640 from the int8 weights with
+# dropout 0 (the ranks draw their own dropout masks, one process draws one
+# over the batch), a global batch of BATCH (BATCH / DP_RANKS a rank)
+DP_RANKS = 2
+DP_POOL = 8
+DP_STEPS = 3
+DP_LOSS_RTOL = 1e-4
+DP_EEE_BATCH = 4
+DP_EEE_STEPS = 2
+# 28(b): the CLI under torchrun (NCCL, world size 1) against the CLI alone,
+# at 240x320 (the weights do not depend on the size) on 8 rendered scenes
+DP_CLI_RTOL = 1e-5
+DP_CLI_STEPS = 2
+DP_CLI_SIZE = (240, 320)
+DP_TIMEOUT = 300
+WEIGHTS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "weights",
+                       "flagship_synth_int8.npz")
 # H100 SXM data sheet: HBM3 rate and fp32 rate outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
@@ -958,7 +1006,7 @@ def serve_batched(params, card):
     predictor.sync_events = None
     print(f"per-batch host sync: compute stream idle {[round(g, 4) for g in gaps]} ms per "
           f"batch, {sum(gaps):.4f} ms of a {wall_ms:.3f} ms staged pass on {card}")
-    return launches, rates
+    return launches, rates, frames, batch_out
 
 
 def multiscale(params):
@@ -3899,6 +3947,392 @@ def seam_phase(params, served, frames, card, work):
     return launches
 
 
+def _dp_configs():
+    from quber_tpu_torch.config import TrainConfig
+    from quber_tpu_torch.models.mask_refiner import MaskRefinerConfig
+
+    return MaskRefinerConfig(aspp_dropout=0.0), TrainConfig(batch_size=BATCH, warmup_iters=2)
+
+
+def _dp_eee_batch():
+    """Phase 28(d)'s global batch: seeded inputs and one-hot error maps."""
+    from quber_tpu_torch.models.late_fusion import MODALITIES
+
+    g = torch.Generator().manual_seed(OPENVOCAB_SEED + 28)
+    batch = {k: torch.randn(DP_EEE_BATCH, c, H, W, generator=g) for k, c in MODALITIES}
+    for k in ("mask_target", "boundary_target"):
+        batch[k] = torch.nn.functional.one_hot(
+            torch.randint(0, 3, (DP_EEE_BATCH, H, W), generator=g), 3).permute(0, 3, 1, 2).float()
+    return batch
+
+
+def _dp_eee_losses(dev, mesh):
+    """DP_EEE_STEPS train_eee steps (Adam, focal) of the late-fusion model
+    from its seeded init: on this rank's slice under a mesh, else on the
+    whole batch."""
+    from quber_tpu_torch.models.late_fusion import LateFusionEncoderDecoder
+    from quber_tpu_torch.parallel.mesh import put_batch
+    from quber_tpu_torch.train.eee_train import create_eee_state, make_eee_train_step
+
+    model = LateFusionEncoderDecoder()
+    optimizer = create_eee_state(model, seed=OPENVOCAB_SEED, device=dev, mesh=mesh)
+    step = make_eee_train_step(model, optimizer, "focal", mesh)
+    batch = _dp_eee_batch()
+    batch = put_batch(batch, mesh) if mesh is not None else {k: v.to(dev) for k, v in
+                                                             batch.items()}
+    return [{k: float(v) for k, v in step(batch).items()} for _ in range(DP_EEE_STEPS)]
+
+
+def _bit_checksums(tensors) -> torch.Tensor:
+    """An int64 checksum of each float32 tensor's bits (exact: integer sums
+    do not depend on their order)."""
+    sums = []
+    for t in tensors:
+        bits = t.detach().contiguous().view(-1).view(torch.int32).long()
+        weights = torch.arange(1, 2 * bits.numel() + 1, 2, dtype=torch.int64, device=t.device)
+        sums.append((bits * weights).sum())
+    return torch.stack(sums).cpu()
+
+
+def _dp_steps(state, step, pool, dev):
+    """DP_STEPS steps: losses, ms, launches and (for the ranks) the state's
+    checksums after each."""
+    from quber_tpu_torch.ops import kernels
+
+    out = {"losses": [], "ms": [], "launches": [], "checksums": []}
+    for _ in range(DP_STEPS):
+        bufs = pool.next_batch()
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        _, metrics = step(state, bufs)
+        torch.cuda.synchronize(dev)
+        out["ms"].append((time.perf_counter() - t0) * 1e3)
+        out["launches"].append(_launch_counts())
+        out["losses"].append({k: float(v) for k, v in metrics.items()})
+        moments = [s[k] for s in state.optimizer.state.values() for k in ("exp_avg", "exp_avg_sq")]
+        out["checksums"].append(_bit_checksums(list(state.model.state_dict().values()) + moments))
+    return out
+
+
+def dp_worker(work) -> int:
+    """Phase 28(a) and (d) on one of DP_RANKS gloo ranks sharing cuda:0,
+    launched by torchrun: DP_STEPS device-target steps of the flagship on
+    the rank's slice of each global batch, then DP_EEE_STEPS late-fusion
+    steps; the results go to `work`/dp_rank<rank>.pt."""
+    from quber_tpu_torch.models.from_jax import state_dict_from_jax
+    from quber_tpu_torch.ops import kernels
+    from quber_tpu_torch.parallel import mesh as pmesh
+    from quber_tpu_torch.train.checkpoint import load_eval_params
+    from quber_tpu_torch.train.device_targets import DevicePool, make_device_target_step
+    from quber_tpu_torch.train.loop import create_train_state
+
+    dev = torch.device("cuda", 0)
+    pmesh.initialize_multihost(backend="gloo", device=dev)
+    torch.cuda.set_device(dev)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kernels.load_library()
+    mesh = pmesh.make_mesh(dev)
+    model_cfg, train_cfg = _dp_configs()
+    state = create_train_state(model_cfg, train_cfg, mesh=mesh)
+    state.model.load_state_dict(state_dict_from_jax(load_eval_params(WEIGHTS)), strict=True)
+    pool = DevicePool(np.load(os.path.join(work, "dp_pool.npy")), BATCH, train_cfg.seed, dev,
+                      mesh=mesh)
+    out = _dp_steps(state, make_device_target_step(model_cfg, train_cfg, TRAIN_SLOTS,
+                                                   mesh=mesh), pool, dev)
+    if mesh.rank == 0:
+        out["state"] = {k: v.detach().cpu() for k, v in state.model.state_dict().items()}
+    del state, pool
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    out["eee"] = _dp_eee_losses(dev, mesh)
+    out["eee_ms"] = (time.perf_counter() - t0) * 1e3 / DP_EEE_STEPS
+    torch.save(out, os.path.join(work, f"dp_rank{mesh.rank}.pt"))
+    pmesh.shutdown()
+    return 0
+
+
+def _torchrun(nproc, args, log):
+    """A torchrun --standalone launch of `args` (a script and its arguments)
+    from the root of the checkout, its output to `log`."""
+    f = open(log, "w")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(nproc), *args]
+    return subprocess.Popen(cmd, cwd=os.path.dirname(os.path.abspath(__file__)), stdout=f,
+                            stderr=subprocess.STDOUT), f
+
+
+def _wait(procs, what):
+    """Waits for (Popen, log file) pairs; kills them all on a timeout."""
+    try:
+        for p, _ in procs:
+            p.wait(timeout=DP_TIMEOUT)
+    finally:
+        for p, f in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            f.close()
+    for p, f in procs:
+        if p.returncode:
+            with open(f.name) as log:
+                tail = log.read()[-4000:]
+            raise AssertionError(f"{what}: a process exited with {p.returncode}:\n{tail}")
+
+
+def _update_cosines(before, after_a, after_b, names):
+    """min over `names` of the cosine between the two states' updates."""
+    worst = (1.0, None)
+    for n in names:
+        da = (after_a[n].double() - before[n].double()).flatten()
+        db = (after_b[n].double() - before[n].double()).flatten()
+        cos = float(torch.nn.functional.cosine_similarity(da, db, dim=0))
+        worst = min(worst, (cos, n))
+    return worst
+
+
+def dp_train(params, dev, card, work, meanwhile):
+    """Phase 28(a) and (d): the ranks (torchrun, gloo on cuda:0) against
+    one process on the whole batch, which runs while the ranks start up
+    (their imports, weights and initialisation), and so does `meanwhile()`
+    after it. Returns each rank's launches."""
+    from quber_tpu_torch.models.from_jax import state_dict_from_jax
+    from quber_tpu_torch.models.layers import BatchNorm, ConvNorm
+    from quber_tpu_torch.profiling import packed_scene_pool
+    from quber_tpu_torch.train.device_targets import DevicePool, make_device_target_step
+    from quber_tpu_torch.train.loop import create_train_state
+
+    model_cfg, train_cfg = _dp_configs()
+    packed = packed_scene_pool(model_cfg, train_cfg, DP_POOL, TRAIN_SLOTS, seed=28)
+    np.save(os.path.join(work, "dp_pool.npy"), packed)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks_proc = _torchrun(DP_RANKS, [os.path.basename(__file__), "--dp-worker", work],
+                           os.path.join(work, "dp_ranks.log"))
+    try:
+        before = state_dict_from_jax(params)
+        state = create_train_state(model_cfg, train_cfg, device=dev)
+        state.model.load_state_dict(before, strict=True)
+        one = _dp_steps(state, make_device_target_step(model_cfg, train_cfg, TRAIN_SLOTS),
+                        DevicePool(packed, BATCH, train_cfg.seed, dev), dev)
+        after = {k: v.detach().cpu() for k, v in state.model.state_dict().items()}
+        trainable = {n for n, p in state.model.named_parameters() if p.requires_grad}
+        zero_grad = {f"{name}.conv.bias" for name, mod in state.model.named_modules()
+                     if isinstance(mod, ConvNorm) and isinstance(mod.norm, BatchNorm)
+                     and mod.conv.bias is not None}
+        stats = {f"{name}.{leaf}" for name, mod in state.model.named_modules()
+                 if isinstance(mod, BatchNorm) for leaf in ("running_mean", "running_var")}
+        del state
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize(dev)
+        t_eee = time.perf_counter()
+        eee_want = _dp_eee_losses(dev, None)
+        eee_ms = (time.perf_counter() - t_eee) * 1e3 / DP_EEE_STEPS
+        torch.cuda.empty_cache()
+        meanwhile()
+    finally:
+        _wait([ranks_proc], "28(a) ranks")
+    ranks_s = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(work, f"dp_rank{r}.pt"), weights_only=False)
+             for r in range(DP_RANKS)]
+
+    for i, want in enumerate(one["losses"]):
+        got = [r["losses"][i] for r in ranks]
+        print(f"28(a) step {i + 1}: total loss {DP_RANKS} ranks {got[0]['total_loss']:.6f}, "
+              f"one process {want['total_loss']:.6f}; ms a step, ranks "
+              f"{[round(r['ms'][i], 1) for r in ranks]}, one process {one['ms'][i]:.1f}")
+        if any(g != got[0] for g in got):
+            raise AssertionError(f"28(a) step {i + 1}: the ranks report different losses")
+        for k, v in want.items():
+            if not abs(got[0][k] - v) <= DP_LOSS_RTOL * abs(v):
+                raise AssertionError(f"28(a) step {i + 1}: {k} {got[0][k]} on {DP_RANKS} "
+                                     f"ranks, {v} in one process (rtol {DP_LOSS_RTOL})")
+        if any(not torch.equal(r["checksums"][i], ranks[0]["checksums"][i]) for r in ranks):
+            raise AssertionError(f"28(a) step {i + 1}: the ranks' states are not bit-equal")
+    for r, res in enumerate(ranks):
+        for i, n in enumerate(res["launches"]):
+            if n["instance_stats"] != 2 or n["encode_initial_masks_batched"] != 1 or \
+                    n["encode_initial_masks"] or n["group_pixels"] or n["group_pixels_batched"]:
+                raise AssertionError(f"28(a) rank {r} step {i + 1}: launches {n}, expected two "
+                                     f"statistics and one batched encode launch")
+    cos_w = _update_cosines(before, ranks[0]["state"], after, sorted(trainable - zero_grad))
+    cos_s = _update_cosines(before, ranks[0]["state"], after, sorted(stats))
+    print(f"28(a): {DP_RANKS} gloo ranks on cuda:0, flagship {H}x{W}, global batch {BATCH}, "
+          f"{DP_STEPS} device-target steps from the int8 weights: losses within rtol "
+          f"{DP_LOSS_RTOL} of one process on the whole batch at every step; states bit-equal "
+          f"across ranks after every step ({len(ranks[0]['checksums'][0])} tensors and "
+          f"moments); update cosine against one process: {len(trainable - zero_grad)} "
+          f"trainable tensors min {cos_w[0]:.6f} at {cos_w[1]}, {len(stats)} BatchNorm "
+          f"statistics min {cos_s[0]:.6f} at {cos_s[1]} (need >= {GRAD_COSINE}); launches a "
+          f"rank a step {ranks[0]['launches'][0]}; ms a step (median of {DP_STEPS}) "
+          f"{DP_RANKS} ranks {statistics.median(ranks[0]['ms']):.1f}, one process "
+          f"{statistics.median(one['ms']):.1f} (both ranks share one card: no scaling figure; "
+          f"the one process ran while the ranks started up); the ranks' launch {ranks_s:.1f} s "
+          f"on {card}")
+    if cos_w[0] < GRAD_COSINE or cos_s[0] < GRAD_COSINE:
+        raise AssertionError("28(a): an update disagrees with one process's")
+
+    want = eee_want
+    got = ranks[0]["eee"]
+    print(f"28(d): train_eee on {DP_RANKS} ranks {[g['total_loss'] for g in got]}, one process "
+          f"{[w['total_loss'] for w in want]} (rtol {DP_LOSS_RTOL}), batch {DP_EEE_BATCH} at "
+          f"{H}x{W}; ms a step, the first included: {ranks[0]['eee_ms']:.1f} on the ranks, "
+          f"{eee_ms:.1f} in one process")
+    if any(r["eee"] != got for r in ranks):
+        raise AssertionError("28(d): the ranks report different losses")
+    for g, w in zip(got, want):
+        for k, v in w.items():
+            if not abs(g[k] - v) <= DP_LOSS_RTOL * abs(v):
+                raise AssertionError(f"28(d): {k} {g[k]} on {DP_RANKS} ranks, {v} in one process")
+    return [{name: sum(n[name] for n in r["launches"]) for name in r["launches"][0]}
+            for r in ranks]
+
+
+def _dp_cli_args(work, name, resume):
+    h, w = DP_CLI_SIZE
+    return ["--synthetic", "--device-targets", "--synthetic-size", "8", "--height", str(h),
+            "--width", str(w), "--log-period", "1", "--weights-file", WEIGHTS,
+            "--max-iter", str(DP_CLI_STEPS + resume), "--output-dir",
+            os.path.join(work, f"dp_cli_{name}")] + (["--resume"] if resume else [])
+
+
+def _dp_cli_torchrun(work, resume):
+    """Starts 28(b)'s run of train_net_torch.py under torchrun (NCCL at world
+    size 1): DP_CLI_STEPS steps, or with `resume` one more from its
+    checkpoint."""
+    log = os.path.join(work, f"dp_cli_torchrun{'_resume' if resume else ''}.log")
+    return _torchrun(1, ["train_net_torch.py", *_dp_cli_args(work, "torchrun", resume)], log)
+
+
+def _dp_cli_alone(work, resume):
+    """The same run of train_net_torch.main in this process."""
+    import train_net_torch
+
+    train_net_torch.main(_dp_cli_args(work, "alone", resume))
+
+
+def dp_cli_check(work, card):
+    """Phase 28(b): the CLI's losses under torchrun against its losses alone,
+    step by step, the resumed step included."""
+    with open(os.path.join(work, "dp_cli_torchrun.log")) as f:
+        if "world size 1" not in f.read():
+            raise AssertionError("28(b): the torchrun run did not train in a process group")
+    with open(os.path.join(work, "dp_cli_torchrun_resume.log")) as f:
+        if f"resumed at step {DP_CLI_STEPS}" not in f.read():
+            raise AssertionError(f"28(b): the torchrun run did not resume at step "
+                                 f"{DP_CLI_STEPS}")
+    metrics = {}
+    for name in ("alone", "torchrun"):
+        with open(os.path.join(work, f"dp_cli_{name}", "metrics.jsonl")) as f:
+            metrics[name] = [json.loads(line) for line in f]
+    got, want = metrics["torchrun"], metrics["alone"]
+    if [m["iter"] for m in got] != list(range(1, DP_CLI_STEPS + 2)) or \
+            [m["iter"] for m in want] != [m["iter"] for m in got]:
+        raise AssertionError(f"28(b): logged steps {[m['iter'] for m in got]}")
+    for g, m in zip(got, want):
+        for k, v in m.items():
+            if k != "iter" and not abs(g[k] - v) <= DP_CLI_RTOL * abs(v):
+                raise AssertionError(f"28(b) step {m['iter']}: {k} {g[k]} under torchrun, {v} "
+                                     f"alone (rtol {DP_CLI_RTOL})")
+    h, w = DP_CLI_SIZE
+    print(f"28(b): train_net_torch.py under torchrun (NCCL, world size 1) and alone (main() in "
+          f"this process), {h}x{w}, batch {BATCH}, {DP_CLI_STEPS} steps then --resume for one "
+          f"more: total loss {[round(m['total_loss'], 6) for m in got]} both, within rtol "
+          f"{DP_CLI_RTOL} on {card}")
+
+
+def dp_serve(params, frames, batch_out, card):
+    """Phase 28(c): predict_batch_stream and _staged on a two-replica mesh on
+    cuda:0 over phase 7's frames at B = BATCH. Returns the launches and a
+    function that prints the frames/s of the two paths."""
+    from quber_tpu_torch.ops import kernels
+    from quber_tpu_torch.parallel.mesh import make_mesh
+    from quber_tpu_torch.predictor import MaskRefinerPredictor
+
+    predictor = MaskRefinerPredictor(params=params, device="cuda")
+    mesh = make_mesh(["cuda:0"] * DP_RANKS)
+    sub = BATCH // DP_RANKS
+    # what each replica computes: predict_batch on its sub-batch of each
+    # (padded) batch
+    want = []
+    for i in range(0, len(frames), BATCH):
+        b = frames[i:i + BATCH]
+        b = b + [b[0]] * (BATCH - len(b))
+        out = sum((predictor.predict_batch(b[j:j + sub]) for j in range(0, BATCH, sub)), [])
+        want += out[:min(BATCH, len(frames) - i)]
+    n_batches = -(-len(frames) // BATCH)
+
+    def staged_run(staged):
+        return list(predictor.predict_batch_stream_staged(staged, prefetch=2, mesh=mesh))
+
+    def stream_run():
+        return list(predictor.predict_batch_stream(iter(frames), BATCH, prefetch=2, mesh=mesh))
+
+    kernels.reset_launch_counts()
+    staged = predictor.stage_frames(frames, BATCH, mesh=mesh)
+    got_staged = staged_run(staged)
+    launches = _launch_counts()
+    _check_launches("28(c) staged on the mesh", launches, n_batches * DP_RANKS)
+    kernels.reset_launch_counts()
+    got_stream = stream_run()
+    _check_launches("28(c) streamed on the mesh", _launch_counts(), n_batches * DP_RANKS)
+    for path, got in (("mesh staged", got_staged), ("mesh streamed", got_stream)):
+        _same_outputs(f"28(c) {path} against predict_batch on the replicas' sub-batches",
+                      got, want)
+        agree = [float((g[0] == b[0]).mean()) for g, b in zip(got, batch_out)]
+        counts = all(g[1] == b[1] for g, b in zip(got, batch_out))
+        print(f"28(c) {path} against phase 7's predict_batch at B = {BATCH}: counts equal "
+              f"{counts}, panoptic agreement min {min(agree):.6f}, max |score difference| "
+              f"{max(float(np.abs(g[2] - b[2]).max()) for g, b in zip(got, batch_out)):.3g}")
+        if not counts or min(agree) < PANOPTIC_AGREEMENT:
+            raise AssertionError(f"28(c) {path}: the outputs differ from predict_batch's")
+
+    def fps(fn):
+        fn()
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return len(frames) / statistics.median(times)
+
+    def rates():
+        print(f"28(c): {DP_RANKS} replicas on cuda:0, {len(frames)} frames at B = {BATCH} "
+              f"({sub} a replica): staged {fps(lambda: staged_run(staged)):.3f} frames/s, "
+              f"streamed {fps(stream_run):.3f} frames/s (phase 8's lines above: one replica "
+              f"at B = {BATCH}) on {card}")
+
+    return launches, rates
+
+
+def dp_phase(params, frames, batch_out, dev, card, work):
+    """Phase 28: data parallelism on the card. 28(b)'s first torchrun run
+    starts beside 28(a)'s ranks, and its run alone goes while they start up
+    (the CLI's GPU work is 2 steps at 240x320); 28(c)'s frames/s are taken
+    last, on a card that serves nothing else."""
+    t0 = time.perf_counter()
+    cli = _dp_cli_torchrun(work, resume=False)
+    try:
+        train_launches = dp_train(params, dev, card, work,
+                                  meanwhile=lambda: _dp_cli_alone(work, resume=False))
+    finally:
+        _wait([cli], "28(b) the CLI under torchrun")
+    serve_launches, rates = dp_serve(params, frames, batch_out, card)
+    cli = _dp_cli_torchrun(work, resume=True)
+    try:
+        _dp_cli_alone(work, resume=True)
+    finally:
+        _wait([cli], "28(b) the CLI under torchrun, resumed")
+    dp_cli_check(work, card)
+    rates()
+    print(f"phase 28: {time.perf_counter() - t0:.1f} s on {card}")
+    return train_launches, serve_launches
+
+
 def _elapsed(what):
     print(f"[{time.perf_counter() - _T0:.1f} s] {what} done", flush=True)
 
@@ -3943,7 +4377,7 @@ def main() -> int:
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     batched_rows, stats_b8 = check_batched_kernels(dev, flush)
     del flush
-    batched_launches, _ = serve_batched(params, card)
+    batched_launches, _, batched_frames, batched_out = serve_batched(params, card)
     for row in batched_rows:
         row["launches"] = batched_launches[row["name"]]
         row["kernel_ms"] = row["ms"]
@@ -4000,6 +4434,10 @@ def main() -> int:
         torch.cuda.empty_cache()
         import_launches = seam_phase(params, served, frames, card, work)
         _elapsed("phase 27")
+        torch.cuda.empty_cache()
+        dp_train_launches, dp_serve_launches = dp_phase(params, batched_frames, batched_out,
+                                                        dev, card, work)
+        _elapsed("phase 28")
     # the serving shapes' entries: launches on the single-frame CLI path
     # (predict, K = 24) and on the benchmark's batches of 16
     for row in rows:
@@ -4029,6 +4467,15 @@ def main() -> int:
         # detectron2 .pth (phase 27(a))
         row["import"] = {"launches": import_launches[name],
                          "path": f"predict() of {N_FRAMES} frames, flagship from the import CLI"}
+        # the data-parallel launches of phase 28: each rank's over its
+        # device-target steps (a process counts its own), and the serving
+        # mesh's over its replicas' sub-batches
+        row["dp_train"] = {"launches_per_rank": [n[name] for n in dp_train_launches],
+                           "path": f"{DP_STEPS} device-target steps on {DP_RANKS} gloo ranks "
+                                   f"sharing cuda:0, global batch {BATCH}"}
+        row["dp_serve"] = {"launches": dp_serve_launches[name],
+                           "path": f"predict_batch_stream_staged on a {DP_RANKS}-replica mesh, "
+                                   f"{N_SERVE} frames at B = {BATCH}"}
         row["zoo_eval"] = {base: {"launches_per_image": n[0][name],
                                   "launches_streamed": n[1][name],
                                   "path": f"run_eval, base {base}, {EVAL_FRAMES} frames"}
@@ -4047,4 +4494,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp-worker"]:
+        sys.exit(dp_worker(sys.argv[2]))
     sys.exit(main())

@@ -18,6 +18,14 @@ a pool is whichever the scheduler gave that worker (ROADMAP item 11d). With
 worker_count 0 this is batch_iterator itself. The workers start with
 `spawn`, which imports the caller's main module again: a script that
 makes a loader must guard its entry with `if __name__ == "__main__":`.
+
+Data parallel (`shard=(rank, world)`): each rank follows the same stream of
+positions, cut into global batches of `batch_size`, and maps only its own
+contiguous 1/world of each, with the position-seeded draws (in the worker
+pool or, at worker_count 0, in process); so the ranks' batches are the
+single-process worker loader's batches, sliced. A rank cannot see the
+shapes of the samples it does not map, so a multi-scale mapper, whose
+batches are grouped by shape, is refused there.
 """
 
 from __future__ import annotations
@@ -37,11 +45,12 @@ def _init_worker(mapper, records, seed):
     _WORKER.update(mapper=mapper, records=records, seed=seed)
 
 
-def _map_one(pos: int, index: int) -> dict:
-    mapper = _WORKER["mapper"]
+def _map_one(pos: int, index: int, worker: dict | None = None) -> dict:
+    worker = _WORKER if worker is None else worker
+    mapper = worker["mapper"]
     if hasattr(mapper, "rng"):
-        mapper.rng = np.random.RandomState([_WORKER["seed"] % 2 ** 32, pos % 2 ** 32])
-    return mapper(_WORKER["records"][index])
+        mapper.rng = np.random.RandomState([worker["seed"] % 2 ** 32, pos % 2 ** 32])
+    return mapper(worker["records"][index])
 
 
 def _order(n: int, shuffle: bool, seed: int):
@@ -54,15 +63,28 @@ def _order(n: int, shuffle: bool, seed: int):
         yield from (int(i) for i in order)
 
 
+class _Done:
+    """An in-process result with the AsyncResult's get()."""
+
+    def __init__(self, value):
+        self.value = value
+
+    def get(self):
+        return self.value
+
+
 class WorkerLoader:
     """Iterator of stacked numpy batch dicts (endless); `close()` stops the
-    workers (also on garbage collection and at the end of a `with`)."""
+    workers (also on garbage collection and at the end of a `with`). With
+    `shard=(rank, world)` each batch is this rank's slice of the global
+    batch of `batch_size`; worker_count 0 then maps in process."""
 
     def __init__(self, records, mapper, batch_size: int, seed: int = 0, shuffle: bool = True,
-                 worker_count: int = 2, prefetch: int = 2):
+                 worker_count: int = 2, prefetch: int = 2, shard: tuple | None = None):
         from quber_tpu_torch.data.datasets import get_dataset
 
         self._pool = None
+        self._closed = False
         if getattr(mapper, "is_train", False) and getattr(getattr(mapper, "tc", None),
                                                           "copy_paste_prob", 0.0) > 0:
             raise ValueError("copy-paste takes its donor from the sample a mapper mapped "
@@ -70,32 +92,52 @@ class WorkerLoader:
                              "scheduling; train with copy_paste_prob > 0 at --workers 0 "
                              "(worker-loader copy-paste is ROADMAP item 11d)")
         self.records = get_dataset(records) if isinstance(records, str) else list(records)
-        self.batch_size = batch_size
-        ctx = mp.get_context("spawn")
-        self._pool = ctx.Pool(worker_count, initializer=_init_worker,
-                              initargs=(mapper, self.records, seed))
+        rank, world = shard or (0, 1)
+        if batch_size % world:
+            raise ValueError(f"the global batch of {batch_size} does not divide over "
+                             f"{world} ranks")
+        self.batch_size = batch_size // world
+        self._global, self._rank, self._sharded = batch_size, rank, shard is not None
+        if worker_count:
+            ctx = mp.get_context("spawn")
+            self._pool = ctx.Pool(worker_count, initializer=_init_worker,
+                                  initargs=(mapper, self.records, seed))
+        self._local = dict(mapper=mapper, records=self.records, seed=seed)
         self._indices = _order(len(self.records), shuffle, seed)
         self._pos = 0
         self._inflight: deque = deque()
         self._depth = max(1, worker_count * prefetch)
         self._pending: dict = {}
 
+    def _next_position(self) -> tuple[int, int]:
+        """(stream position, record index) of the next sample this rank maps."""
+        while True:
+            pos, index = self._pos, next(self._indices)
+            self._pos += 1
+            if pos % self._global // self.batch_size == self._rank:
+                return pos, index
+
     def _submit(self):
         while len(self._inflight) < self._depth:
-            self._inflight.append(self._pool.apply_async(_map_one, (self._pos,
-                                                                    next(self._indices))))
-            self._pos += 1
+            args = self._next_position()
+            self._inflight.append(self._pool.apply_async(_map_one, args) if self._pool
+                                  else _Done(_map_one(*args, self._local)))
 
     def __iter__(self):
         return self
 
     def __next__(self) -> dict:
-        if self._pool is None:
+        if self._closed:
             raise StopIteration
         while True:
             self._submit()
             s = self._inflight.popleft().get()
             key = tuple((k, np.shape(v)) for k, v in sorted(s.items()))
+            if self._sharded and self._pending and key not in self._pending:
+                raise ValueError("samples of several shapes (a multi-scale mapper): batches "
+                                 "grouped by shape cannot be split by a rank that maps only "
+                                 "its own samples; train them data-parallel with a stream "
+                                 "a rank (--multihost)")
             batch = self._pending.setdefault(key, [])
             batch.append(s)
             if len(batch) == self.batch_size:
@@ -103,6 +145,7 @@ class WorkerLoader:
                 return {k: np.stack([x[k] for x in batch]) for k in batch[0]}
 
     def close(self):
+        self._closed = True
         if self._pool is not None:
             self._pool.terminate()
             self._pool.join()
@@ -119,9 +162,14 @@ class WorkerLoader:
 
 
 def make_dataloader(records, mapper, batch_size: int, seed: int = 7, shuffle: bool = True,
-                    worker_count: int = 0):
+                    worker_count: int = 0, shard: tuple | None = None):
     """An endless iterator of stacked numpy batch dicts: worker processes
-    for worker_count > 0, else the in-process batch_iterator."""
+    for worker_count > 0, else the in-process batch_iterator; with
+    `shard=(rank, world)` this rank's slice of each global batch of
+    `batch_size` (WorkerLoader)."""
+    if shard is not None:
+        return WorkerLoader(records, mapper, batch_size, seed=seed, shuffle=shuffle,
+                            worker_count=worker_count, shard=shard)
     if not worker_count:
         from quber_tpu_torch.data.mappers import batch_iterator
 

@@ -30,6 +30,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from quber_tpu_torch.parallel.mesh import all_reduce_sum
+
 
 def upsample_bilinear(x: torch.Tensor, scale: int | None = None,
                       size: tuple[int, int] | None = None) -> torch.Tensor:
@@ -252,20 +254,47 @@ class BatchNorm(nn.Module):
     batch's mean and biased variance, and the running statistics move by
     0.1 towards them. Unlike nn.BatchNorm2d it keeps no batch counter (a
     flax tree maps onto it one leaf per tensor) and the running variance
-    takes the BIASED batch variance, as flax's does."""
+    takes the BIASED batch variance, as flax's does.
+
+    Data parallel (`mesh`, set by `sync_batch_norm`): under a mesh of world
+    size > 1 in training mode the batch moments are those of the GLOBAL
+    batch, as the JAX package's BatchNorm computes them under jit over a
+    sharded batch: the per-channel sum, sum of squares and count are summed
+    over the ranks by a differentiable all-reduce (the gradient flows through
+    the global moments), and flax's formula normalises with them (variance
+    E[x^2] - E[x]^2, clamped at 0)."""
 
     momentum = 0.1  # torch's convention: the weight of the new batch
 
     def __init__(self, channels: int, eps: float = 1e-5):
         super().__init__()
         self.eps = eps
+        self.mesh = None
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
 
+    def _global_moments(self, x):
+        c = x.shape[1]
+        dims = [0] + list(range(2, x.dim()))
+        count = x.new_full((1,), x.numel() // c)
+        sums = all_reduce_sum(torch.cat([x.sum(dims), (x * x).sum(dims), count]), self.mesh)
+        n = sums[2 * c].detach()
+        mean = sums[:c] / n
+        var = (sums[c:2 * c] / n - mean * mean).clamp_min(0.0)
+        return mean, var
+
     def forward(self, x):
         x = x.float()
+        if self.training and self.mesh is not None and self.mesh.distributed:
+            mean, var = self._global_moments(x)
+            shape = (-1,) + (1,) * (x.dim() - 2)
+            mul = torch.rsqrt(var + self.eps) * self.weight
+            with torch.no_grad():
+                self.running_mean.lerp_(mean, self.momentum)
+                self.running_var.lerp_(var, self.momentum)
+            return (x - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
         if not self.training:
             if isinstance(self.running_mean, nn.Parameter):
                 # statistics a recipe trains: flax's formula, differentiable in them
@@ -285,6 +314,15 @@ class BatchNorm(nn.Module):
             self.running_mean.lerp_(mean, self.momentum)
             self.running_var.lerp_(var * ((n - 1) / n), self.momentum)
         return y
+
+
+def sync_batch_norm(module: nn.Module, mesh) -> nn.Module:
+    """Hands `mesh` (parallel.mesh.Mesh, or None for local moments) to every
+    BatchNorm of `module`."""
+    for mod in module.modules():
+        if isinstance(mod, BatchNorm):
+            mod.mesh = mesh
+    return module
 
 
 def make_norm(norm: str, channels: int) -> nn.Module | None:

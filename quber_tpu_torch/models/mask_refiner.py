@@ -23,6 +23,7 @@ from torch import nn
 from quber_tpu_torch.models.heads import ERROR_TYPE_CHANNELS, InsEmbedHead
 from quber_tpu_torch.models.layers import ASPP, Conv2d, upsample_bilinear
 from quber_tpu_torch.models.resnet import RGBDFusionBackbone, SingleTrunkBackbone
+from quber_tpu_torch.parallel.mesh import all_gather, all_reduce_sum
 
 
 @dataclasses.dataclass(frozen=True)
@@ -230,44 +231,62 @@ def _bce_with_logits(logits, targets):
     return logits.clamp_min(0) - logits * targets + torch.log1p(torch.exp(-logits.abs()))
 
 
-def foreground_loss(logits, targets, weights=None, top_k: float = 1.0):
+def foreground_loss(logits, targets, weights=None, top_k: float = 1.0, mesh=None):
     """Hard-pixel-mining BCE: logits [B, H, W] raw, targets {0, 1}, weights
     multiply the per-pixel losses; top_k < 1 keeps the largest top_k fraction
-    of the pixel losses of the whole batch."""
+    of the pixel losses of the whole batch. Under a data-parallel `mesh`
+    (parallel.mesh.Mesh) this rank's share of the global batch's loss: the
+    local mean over the world size, or with top_k < 1 the rank's own pixels
+    among the global top k of the gathered pixel losses, over k."""
     pixel = _bce_with_logits(logits, targets.float())
     if weights is not None:
         pixel = pixel * weights
     flat = pixel.reshape(-1)
+    if mesh is not None and mesh.distributed:
+        if top_k >= 1.0:
+            return flat.mean() / mesh.world_size
+        every, sizes = all_gather(flat, mesh)
+        k = max(1, int(top_k * every.shape[0]))
+        start = sum(sizes[:mesh.rank])
+        idx = torch.topk(every, k, sorted=False).indices - start
+        own = idx[(idx >= 0) & (idx < flat.shape[0])]
+        return flat[own].sum() / k
     if top_k >= 1.0:
         return flat.mean()
     k = max(1, int(top_k * flat.shape[0]))
     return torch.topk(flat, k, sorted=False).values.mean()
 
 
-def _weighted_mean(loss, weights):
+def _weighted_mean(loss, weights, mesh=None):
+    """sum(loss) / sum(weights), 0 when the weights sum to 0; under a
+    data-parallel `mesh` the local sum over the weights' global sum."""
     wsum = weights.sum()
+    if mesh is not None and mesh.distributed:
+        wsum = all_reduce_sum(wsum.detach(), mesh)
     return torch.where(wsum > 0, loss.sum() / wsum.clamp_min(1.0), 0.0)
 
 
-def weighted_mse_loss(pred, target, weights):
+def weighted_mse_loss(pred, target, weights, mesh=None):
     """Centre loss: sum(mse * w) / sum(w), 0 when the weights sum to 0."""
-    return _weighted_mean((pred - target) ** 2 * weights, weights)
+    return _weighted_mean((pred - target) ** 2 * weights, weights, mesh)
 
 
-def weighted_l1_loss(pred, target, weights):
+def weighted_l1_loss(pred, target, weights, mesh=None):
     """Offset loss: sum(|d| * w) / sum(w); w [B, 1, H, W] broadcasts over the
     two offset channels but its normalising sum is counted once."""
-    return _weighted_mean((pred - target).abs() * weights, weights)
+    return _weighted_mean((pred - target).abs() * weights, weights, mesh)
 
 
-def dice_loss(logits, targets, smooth: float = 1e-5):
+def dice_loss(logits, targets, smooth: float = 1e-5, mesh=None):
     """Softmax Dice over the channel axis of [B, C, H, W], sums over H, W per
-    (batch, channel), then the mean (monai DiceLoss(softmax=True) defaults)."""
+    (batch, channel), then the mean (monai DiceLoss(softmax=True) defaults);
+    under a data-parallel `mesh` the local mean over the world size."""
     p = torch.softmax(logits, dim=1)
     t = targets.float()
     inter = (p * t).sum(dim=(2, 3))
     denom = p.sum(dim=(2, 3)) + t.sum(dim=(2, 3))
-    return (1.0 - (2.0 * inter + smooth) / (denom + smooth)).mean()
+    loss = (1.0 - (2.0 * inter + smooth) / (denom + smooth)).mean()
+    return loss / mesh.world_size if mesh is not None and mesh.distributed else loss
 
 
 def assemble_eee_targets(tp, tn, fp, fn, error_type: str):
@@ -286,29 +305,32 @@ def assemble_eee_targets(tp, tn, fp, fn, error_type: str):
     return torch.stack(chans, dim=-3)
 
 
-def compute_losses(outputs: dict, targets: dict, cfg: MaskRefinerConfig) -> dict:
+def compute_losses(outputs: dict, targets: dict, cfg: MaskRefinerConfig, mesh=None) -> dict:
     """All training losses from the stride-4 head outputs (full_res=False)
     and full-resolution targets: sem_seg [B, H, W], sem_seg_weights [B, H, W]
     (optional), center [B, H, W], center_weights [B, H, W], offset
     [B, 2, H, W], offset_weights [B, H, W], eee_mask / eee_boundary
-    [B, C, H, W]."""
+    [B, C, H, W]. Under a data-parallel `mesh` each loss is this rank's
+    share of the global batch's loss: the shares sum to it over the ranks."""
     s = cfg.common_stride
     losses = {}
     fg = upsample_bilinear(outputs["foreground"], scale=s)[:, 0]
     losses["loss_sem_seg"] = foreground_loss(
         fg, targets["sem_seg"], targets.get("sem_seg_weights"),
-        cfg.foreground_loss_top_k) * cfg.foreground_loss_weight
+        cfg.foreground_loss_top_k, mesh) * cfg.foreground_loss_weight
     center = upsample_bilinear(outputs["center"], scale=s)[:, 0]
     losses["loss_center"] = weighted_mse_loss(
-        center, targets["center"], targets["center_weights"]) * cfg.center_loss_weight
+        center, targets["center"], targets["center_weights"], mesh) * cfg.center_loss_weight
     offset = upsample_bilinear(outputs["offset"], scale=s) * s
     losses["loss_offset"] = weighted_l1_loss(
-        offset, targets["offset"], targets["offset_weights"][:, None]) * cfg.offset_loss_weight
+        offset, targets["offset"], targets["offset_weights"][:, None],
+        mesh) * cfg.offset_loss_weight
     if cfg.eee_mask_on:
         pred = upsample_bilinear(outputs["eee_mask"], scale=s)
-        losses["loss_eee_mask"] = dice_loss(pred, targets["eee_mask"]) * cfg.eee_mask_loss_weight
+        losses["loss_eee_mask"] = (dice_loss(pred, targets["eee_mask"], mesh=mesh)
+                                   * cfg.eee_mask_loss_weight)
     if cfg.eee_boundary_on:
         pred = upsample_bilinear(outputs["eee_boundary"], scale=s)
-        losses["loss_eee_boundary"] = (dice_loss(pred, targets["eee_boundary"])
+        losses["loss_eee_boundary"] = (dice_loss(pred, targets["eee_boundary"], mesh=mesh)
                                        * cfg.eee_boundary_loss_weight)
     return losses

@@ -22,7 +22,16 @@ masks handed in are valid. Each frame gives (panoptic [H, W] int32, count,
 scores float32 [top_k_instances + 2]). Panoptic ids are returned as they
 are: the reference's bit-plane output keeps (max_instances + 1).bit_length()
 bits of each id, the port all of them. The reference's packed, RLE and
-codec wire formats, its H2D stream tuner and mesh serving are not ported.
+codec wire formats and its H2D stream tuner are not ported (ROADMAP item
+15).
+
+Mesh serving (`mesh=`, a parallel.mesh.Mesh of D in-process devices; the
+dense-input counterpart of the reference's sharded_batch_pipeline, :1092):
+one model replica a mesh device, each with its own copy, compute and D2H
+streams; each batch is split into D contiguous sub-batches, each uploaded,
+refined and read back on its replica's streams, and the frames come back in
+input order, equal to predict_batch's. A mesh may name one device twice:
+two replicas then share it (how one card serves, and tests, two).
 
 Float32 throughout: on the card, TF32 is switched off for convolutions and
 matrix products (torch.backends.cudnn.allow_tf32 and
@@ -34,6 +43,7 @@ computes.
 from __future__ import annotations
 
 import collections
+import contextlib
 import copy
 import dataclasses
 import queue
@@ -48,6 +58,7 @@ from quber_tpu_torch.models.from_jax import as_state_dict
 from quber_tpu_torch.models.mask_refiner import MaskRefiner, MaskRefinerConfig
 from quber_tpu_torch.ops import kernels
 from quber_tpu_torch.ops.grouping import find_instance_centers_batched, merge_and_score
+from quber_tpu_torch.parallel.mesh import split_batch
 
 _END = object()
 
@@ -104,7 +115,9 @@ class MaskRefinerPredictor:
         self.max_instances = max_instances
         self.device = torch.device(device)
         self.sync_events = None
-        self._copy_stream = self._d2h_stream = None
+        # a mesh replica's own compute stream (_replicas); the predictor's
+        # work goes on the current stream
+        self._copy_stream = self._d2h_stream = self._compute_stream = None
         if self.device.type == "cuda":
             torch.backends.cudnn.allow_tf32 = False
             torch.backends.cuda.matmul.allow_tf32 = False
@@ -246,7 +259,7 @@ class MaskRefinerPredictor:
     # Batched and streamed serving (dense layout)
     # ------------------------------------------------------------------
 
-    def _assemble(self, frames, batch_size: int):
+    def _assemble(self, frames, batch_size: int, pin: bool | None = None):
         """Host side of a batch, the reference's _pack_batch (:1160-1200) in
         its dense layout: uint8 RGB-D [B, H, W, 4], masks [B, N, H, W] bool
         and valid [B, N] bool, in pinned memory when the predictor is on the
@@ -254,12 +267,12 @@ class MaskRefinerPredictor:
         no output). A partial batch is padded with copies of its first
         frame. Returns ((img4, masks, valid), real)."""
         cfg = self.config
+        pin = self.device.type == "cuda" if pin is None else pin
         h, w = cfg.height, cfg.width
         real = len(frames)
         frames = list(frames) + [frames[0]] * (batch_size - real)
         counts = [min(len(f[2]), self.max_instances) for f in frames]
         n = max(counts)
-        pin = self.device.type == "cuda"
         img4 = torch.empty((batch_size, h, w, 4), dtype=torch.uint8, pin_memory=pin)
         masks = torch.empty((batch_size, n, h, w), dtype=torch.bool, pin_memory=pin)
         valid = torch.zeros((batch_size, n), dtype=torch.bool, pin_memory=pin)
@@ -341,16 +354,82 @@ class MaskRefinerPredictor:
         for i in range(real):
             yield pan[i].numpy().copy(), int(count[i]), scores[i].numpy().copy()
 
-    def _serve(self, batches, prefetch: int):
-        """Dispatch (tensors, ready, real) batches up to `prefetch` ahead of
-        the blocking readback; yield per-frame results in order."""
+    @staticmethod
+    def _serve(batches, prefetch: int):
+        """Dispatch batches, each a list of (predictor, tensors, ready, real)
+        parts (the batch itself, or a mesh's sub-batches each on its
+        replica's compute stream), up to `prefetch` batches ahead of the
+        blocking readback; yield per-frame results in input order."""
         pending = collections.deque()
-        for tensors, ready, real in batches:
-            pending.append(self._dispatch(tensors, ready, real))
+        for parts in batches:
+            dispatched = []
+            for rep, tensors, ready, real in parts:
+                with rep._on_compute():
+                    dispatched.append((rep, rep._dispatch(tensors, ready, real)))
+            pending.append(dispatched)
             if len(pending) > prefetch:
-                yield from self._drain(pending.popleft())
+                for rep, p in pending.popleft():
+                    yield from rep._drain(p)
         while pending:
-            yield from self._drain(pending.popleft())
+            for rep, p in pending.popleft():
+                yield from rep._drain(p)
+
+    # ------------------------------------------------------------------
+    # Mesh serving: one replica a mesh device
+    # ------------------------------------------------------------------
+
+    def _replicas(self, mesh) -> list:
+        """The mesh's replicas (made once a mesh): a predictor each, with a
+        copy of the module on its device and streams of its own."""
+        cache = self.__dict__.setdefault("_mesh_replicas", {})
+        if id(mesh) not in cache:
+            replicas = []
+            for dev in mesh.devices:
+                rep = copy.copy(self)
+                rep.__dict__.pop("_mesh_replicas", None)
+                rep.device = torch.device(dev)
+                rep.model = copy.deepcopy(self.model).to(rep.device)
+                if rep.device.type == "cuda":
+                    rep._copy_stream, rep._d2h_stream, rep._compute_stream = (
+                        torch.cuda.Stream(rep.device) for _ in range(3))
+                replicas.append(rep)
+            cache[id(mesh)] = (mesh, replicas)  # the mesh is held: its id stays its own
+        return cache[id(mesh)][1]
+
+    def _on_compute(self):
+        """The replica's compute stream as the current stream (nothing on the
+        CPU)."""
+        stream = self._compute_stream
+        return torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext()
+
+    def _mesh_parts(self, mesh, batch_size: int):
+        replicas = self._replicas(mesh)
+        if batch_size % len(replicas):
+            raise ValueError(f"batch_size {batch_size} must divide over the "
+                             f"{len(replicas)}-device mesh")
+        return replicas, batch_size // len(replicas)
+
+    def _uploaded_mesh_batches(self, frames, batch_size: int, mesh):
+        """Assemble batches of `frames` (consumed lazily), split each into the
+        mesh's sub-batches and upload each on its replica's copy stream.
+        Yields a list of (replica, tensors, ready event or None, real) a
+        batch."""
+        replicas, sub = self._mesh_parts(mesh, batch_size)
+        pin = any(r.device.type == "cuda" for r in replicas)
+        for batch in _batches(frames, batch_size):
+            tensors, real = self._assemble(batch, batch_size, pin)
+            parts = []
+            for i, (rep, part) in enumerate(zip(replicas, split_batch(tensors, mesh))):
+                n = min(max(real - i * sub, 0), sub)
+                if rep._copy_stream is None:
+                    parts.append((rep, rep._upload(part), None, n))
+                    continue
+                with torch.cuda.stream(rep._copy_stream):
+                    part = rep._upload(part)
+                    ready = torch.cuda.Event()
+                    ready.record(rep._copy_stream)
+                parts.append((rep, part, ready, n))
+            yield parts
 
     def predict_batch(self, frames):
         """Refine a list of (rgb, depth, masks) frames as one batch (one
@@ -358,13 +437,28 @@ class MaskRefinerPredictor:
         (panoptic [H, W] int32, count, scores [top_k + 2] f32)."""
         frames = list(frames)
         tensors, real = self._assemble(frames, len(frames))
-        return list(self._serve([(self._upload(tensors), None, real)], prefetch=0))
+        return list(self._serve([[(self, self._upload(tensors), None, real)]], prefetch=0))
 
-    def stage_frames(self, frames, batch_size: int = 8):
+    def stage_frames(self, frames, batch_size: int = 8, mesh=None):
         """Device-resident dense batches for predict_batch_stream_staged, so
         that serving pays no H2D (the reference's stage_frames with
         decode=True). The copies run on a side stream and are fenced before
-        this returns. Returns a list of ((img4, masks, valid), real)."""
+        this returns. Returns a list of ((img4, masks, valid), real); with a
+        `mesh`, of (the sub-batches on their replicas' devices, real), for
+        predict_batch_stream_staged with the same mesh."""
+        if mesh is not None:
+            staged = []
+            for parts in self._uploaded_mesh_batches(frames, batch_size, mesh):
+                staged.append(([t for _, t, _, _ in parts], sum(n for *_, n in parts)))
+            for rep in self._replicas(mesh):
+                if rep._copy_stream is not None:
+                    rep._copy_stream.synchronize()
+            for parts, _ in staged:
+                for rep, tensors in zip(self._replicas(mesh), parts):
+                    if rep._compute_stream is not None:
+                        for t in tensors:
+                            t.record_stream(rep._compute_stream)
+            return staged
         side = self._copy_stream
         staged = [(tensors, real) for tensors, _, real
                   in self._uploaded_batches(frames, batch_size, side)]
@@ -376,13 +470,28 @@ class MaskRefinerPredictor:
                     t.record_stream(compute)
         return staged
 
-    def predict_batch_stream_staged(self, staged, prefetch: int = 2):
+    def predict_batch_stream_staged(self, staged, prefetch: int = 2, mesh=None):
         """Serve batches from stage_frames, dispatching up to `prefetch`
         batches ahead of the blocking readback. Yields (panoptic, count,
-        scores) for the real frames of each batch, in order."""
-        yield from self._serve(((t, None, real) for t, real in staged), prefetch)
+        scores) for the real frames of each batch, in order. With a `mesh`
+        (the one stage_frames was given), each sub-batch runs on its
+        replica."""
+        if mesh is None:
+            yield from self._serve(([(self, t, None, real)] for t, real in staged), prefetch)
+            return
+        replicas = self._replicas(mesh)
 
-    def predict_batch_stream(self, frames, batch_size: int = 8, prefetch: int = 2):
+        def batches():
+            for parts, real in staged:
+                if len(parts) != len(replicas):
+                    raise ValueError("the batches were not staged for this mesh")
+                sub = len(parts[0][0])
+                yield [(rep, t, None, min(max(real - i * sub, 0), sub))
+                       for i, (rep, t) in enumerate(zip(replicas, parts))]
+
+        yield from self._serve(batches(), prefetch)
+
+    def predict_batch_stream(self, frames, batch_size: int = 8, prefetch: int = 2, mesh=None):
         """Stream frames in fixed-size batches (the last partial batch is
         padded with its first frame) and yield (panoptic, count, scores) per
         frame, in order.
@@ -393,9 +502,19 @@ class MaskRefinerPredictor:
         copy event, and each batch's outputs go back on a D2H stream while
         the next batch computes. An exception raised by `frames` is raised
         here; closing the generator stops the producer. `prefetch=0` runs
-        everything inline."""
+        everything inline. With a `mesh` of D devices, each batch is split
+        into D sub-batches served by the mesh's replicas (batch_size must
+        divide by D)."""
+        def uploaded():
+            if mesh is not None:
+                return self._uploaded_mesh_batches(frames, batch_size, mesh)
+            stream = self._copy_stream if prefetch > 0 else None
+            return ([(self, *item)] for item in self._uploaded_batches(frames, batch_size, stream))
+
+        if mesh is not None:
+            self._mesh_parts(mesh, batch_size)  # raises before any frame is read
         if prefetch <= 0:
-            yield from self._serve(self._uploaded_batches(frames, batch_size), 0)
+            yield from self._serve(uploaded(), 0)
             return
 
         q: queue.Queue = queue.Queue(maxsize=prefetch)
@@ -412,7 +531,7 @@ class MaskRefinerPredictor:
 
         def producer():
             try:
-                for item in self._uploaded_batches(frames, batch_size, self._copy_stream):
+                for item in uploaded():
                     if not put(item):
                         return
                 put(_END)

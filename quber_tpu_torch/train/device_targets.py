@@ -8,7 +8,10 @@ batch inside the train step: the Gaussian centre heatmap and offsets
 (ops.encoding.panoptic_train_targets), the encoding of the perturbed input
 masks and the eight TP/TN/FP/FN error maps (ops.morphology). On a CUDA
 batch the areas and centroids of both stacks and the input encoding go
-through the hand kernels (ops.kernels), one batched launch each.
+through the hand kernels (ops.kernels), one batched launch each. Data
+parallel (a parallel.mesh.Mesh): each rank unpacks and builds the targets
+of its own slice of the global batch, then takes train.loop's global step;
+DevicePool gives every rank its slice of the same shuffled global batch.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ from quber_tpu_torch.models.mask_refiner import MaskRefinerConfig, assemble_eee_
 from quber_tpu_torch.ops import kernels
 from quber_tpu_torch.ops.encoding import panoptic_train_targets
 from quber_tpu_torch.ops.morphology import quadruple_error_maps
+from quber_tpu_torch.parallel.mesh import Mesh, shard_batch
 from quber_tpu_torch.train.loop import TrainState, apply_step
 
 
@@ -125,11 +129,13 @@ def build_targets(gt, gv, pert, pv, model_cfg: MaskRefinerConfig, train_cfg) -> 
     }
 
 
-def make_device_target_step(model_cfg: MaskRefinerConfig, train_cfg, n_slots: int = 32):
+def make_device_target_step(model_cfg: MaskRefinerConfig, train_cfg, n_slots: int = 32,
+                            mesh: Mesh | None = None):
     """train_step(state, bufs, mark=None) -> (state, metrics) over PACKED
-    samples: bufs u8 [B, sample_bytes] on the state's device. The same
-    contract as train.loop.make_train_step; every target is rebuilt on the
-    device (`mark("targets")` is called once they are)."""
+    samples: bufs u8 [B, sample_bytes] on the state's device (this rank's
+    slice under a data-parallel `mesh`, the state's). The same contract as
+    train.loop.make_train_step; every target is rebuilt on the device
+    (`mark("targets")` is called once they are)."""
     h, w = model_cfg.height, model_cfg.width
 
     def train_step(state: TrainState, bufs: torch.Tensor, mark=None):
@@ -139,7 +145,7 @@ def make_device_target_step(model_cfg: MaskRefinerConfig, train_cfg, n_slots: in
         del gt, pert
         if mark is not None:
             mark("targets")
-        return state, apply_step(state, batch, model_cfg, mark)
+        return state, apply_step(state, batch, model_cfg, mark, mesh)
 
     return train_step
 
@@ -148,11 +154,19 @@ class DevicePool:
     """Packed samples resident on the device: the samples are deterministic
     per record, so the whole pool is uploaded once and each batch is an
     index gather on the device, in a shuffled order that is redrawn every
-    epoch."""
+    epoch. Under a data-parallel `mesh` `batch_size` is the global batch:
+    every rank draws the same shuffled indices (the same RandomState(seed))
+    and gathers its own contiguous slice of them, so one rank and W ranks
+    train on the same samples."""
 
-    def __init__(self, packed: np.ndarray, batch_size: int, seed: int, device):
+    def __init__(self, packed: np.ndarray, batch_size: int, seed: int, device,
+                 mesh: Mesh | None = None):
+        if mesh is not None and batch_size % mesh.world_size:
+            raise ValueError(f"the global batch of {batch_size} does not divide over "
+                             f"{mesh.world_size} ranks")
         self.pool = torch.from_numpy(np.ascontiguousarray(packed)).to(device)
         self.batch_size = batch_size
+        self.mesh = mesh
         self._rng = np.random.RandomState(seed)
         self._order = np.arange(len(packed))
         self._pos = len(packed)  # forces an initial shuffle
@@ -165,6 +179,8 @@ class DevicePool:
                 self._pos = 0
             idx[i] = self._order[self._pos]
             self._pos += 1
+        if self.mesh is not None:
+            idx = shard_batch(idx, self.mesh)
         return self.pool[torch.from_numpy(idx).to(self.pool.device)]
 
 

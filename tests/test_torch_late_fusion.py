@@ -144,6 +144,19 @@ def test_optimizer_is_optax_adam_or_adamw(weight_decay):
 
 
 def test_mesh_is_not_ported():
-    model = TL.LateFusionEncoderDecoder()
-    with pytest.raises(NotImplementedError, match="item 12"):
-        TE.train_eee(model, iter([]), 1, mesh=object(), device="cpu")
+    """train_eee takes a mesh: under a one-process mesh (world size 1) its
+    step is mesh=None's, bit for bit; the data-parallel step over two ranks
+    is held against the reference's in tests/test_torch_parallel_train.py."""
+    from quber_tpu_torch.parallel.mesh import make_mesh
+
+    batch = _nchw(_batch(3))
+    runs = []
+    for mesh in (None, make_mesh(["cpu"])):
+        model = TL.LateFusionEncoderDecoder()
+        model.reset_parameters(torch.Generator().manual_seed(4))
+        _, metrics = TE.train_eee(model, itertools.repeat(batch), 2, LR, 0.0, "focal",
+                                  mesh=mesh, log_every=0, seed=None, device="cpu")
+        runs.append((metrics, model.state_dict()))
+    (m0, sd0), (m1, sd1) = runs
+    assert {k: float(v) for k, v in m0.items()} == {k: float(v) for k, v in m1.items()}
+    assert all(torch.equal(v, sd1[k]) for k, v in sd0.items())

@@ -577,15 +577,71 @@ def test_train_net_torch_routes_see_the_same_losses(scratch, capsys):
     assert len(logs[0]) == 2 and logs[0] == logs[1] == logs[2]
 
 
+_MULTIHOST_YAML = ("model:\n  height: 32\n  width: 32\n  resnet_depth: 14\n  aspp_dropout: 0.0\n"
+                   "train:\n  batch_size: 2\n  warmup_iters: 2\n  base_lr: 0.0005\n")
+
+
+def _multihost_run(tmp_path):
+    """--multihost on two gloo ranks (torchrun, on the CPU): each rank trains
+    on its own stream, seeded seed + rank, in local batches of batch_size
+    2. Its losses (metrics.jsonl, unrounded) against one process taking the
+    global batch of 4 from the two streams: rtol 1e-4 at step 1, 1e-3 at
+    step 2 (Adam's first update is lr * sign(g): where g is ~0 the two
+    computations may move a weight by 2 lr apart)."""
+    import json
+    import subprocess
+    import sys
+
+    from quber_tpu_torch.config import load_any_config
+    from quber_tpu_torch.data.pipeline import make_dataloader
+    from quber_tpu_torch.data.synthetic import synthetic_records
+    from train_net_torch import SyntheticMapper
+
+    cfg = tmp_path / "tiny.yaml"
+    cfg.write_text(_MULTIHOST_YAML)
+    out = tmp_path / "out"
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    res = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "2",
+         os.path.join(repo, "train_net_torch.py"), "--multihost", "--synthetic",
+         "--synthetic-size", "6", "--target-slots", "8", "--device", "cpu", "--log-period", "1",
+         "--max-iter", "2", "--config-file", str(cfg), "--output-dir", str(out)],
+        cwd=repo, env=env, capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stdout[-3000:] + res.stderr[-3000:]
+    assert "world_size=2" in res.stdout and "iter 2/2" in res.stdout
+    assert "local_batch=2" in res.stdout  # batch_size a rank
+    got = [json.loads(line) for line in (out / "metrics.jsonl").read_text().splitlines()]
+
+    model_cfg, train_cfg = load_any_config(str(cfg))
+    # 6 scenes: seeds 7 and 8 shuffle 4 records into the same order
+    records = synthetic_records(6, 32, 32, depth_range=train_cfg.depth_range)
+    streams = [make_dataloader(records, SyntheticMapper(train_cfg, model_cfg, 8),
+                               train_cfg.batch_size, seed=train_cfg.seed + r) for r in range(2)]
+    state = create_train_state(model_cfg, train_cfg, device="cpu")
+    step = make_train_step(model_cfg)
+    assert [g["iter"] for g in got] == [1, 2]
+    for i, rtol in enumerate((1e-4, 1e-3)):
+        parts = [next(s) for s in streams]
+        batch = {k: torch.from_numpy(np.concatenate([p[k] for p in parts])) for k in parts[0]}
+        _, metrics = step(state, batch)
+        for k, v in metrics.items():
+            assert got[i][k] == pytest.approx(float(v), rel=rtol), (i, k)
+
+
 @pytest.mark.parametrize("flags,item", [
-    (["--dataset", "uoais_sim_train_panoptic"], "item 11b"),
-    (["--workers", "2"], "item 11b"),
-    (["--space", "2"], "item 12"),
-    (["--multihost"], "item 12"),
-    (["--multihost", "--space", "2"], "item 12"),
-    ([], "item 11b"),  # without --synthetic there is nothing to train on
+    pytest.param(["--dataset", "uoais_sim_train_panoptic"], "item 11b", id="flags0-item 11b"),
+    pytest.param(["--workers", "2"], "item 11b", id="flags1-item 11b"),
+    pytest.param(["--space", "2"], "item 12b", id="flags2-item 12"),
+    pytest.param(["--multihost"], "item 12", id="flags3-item 12"),
+    pytest.param(["--multihost", "--space", "2"], "item 12b", id="flags4-item 12"),
+    pytest.param([], "item 11b", id="flags5-item 11b"),  # without --synthetic: nothing to train on
 ])
 def test_train_net_torch_cli_names_what_waits(flags, item, tmp_path):
+    """What the CLI's flags wait for in ROADMAP.md, or, where the item is
+    done, what they now do: 11b reads the registered dataset, 12 trains
+    data-parallel (--multihost: a two-rank run against one process), and
+    --space still waits for 12b."""
     import train_net_torch
 
     if item == "item 11b":
@@ -593,6 +649,12 @@ def test_train_net_torch_cli_names_what_waits(flags, item, tmp_path):
         # registered dataset under --data-root, here a directory without one
         with pytest.raises(FileNotFoundError, match="UOAIS-Sim"):
             train_net_torch.main(flags + ["--data-root", str(tmp_path), "--device", "cpu"])
+        return
+    if item == "item 12":
+        try:
+            _multihost_run(tmp_path)
+        finally:  # the ranks' checkpoints take ~0.5 GB
+            shutil.rmtree(tmp_path, ignore_errors=True)
         return
     argv = flags + ["--synthetic"]
     with pytest.raises(SystemExit) as exc:
